@@ -1,0 +1,6 @@
+// Message for an error code returned by the launchers.
+#include <cuda_runtime.h>
+
+extern "C" const char* repro_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}

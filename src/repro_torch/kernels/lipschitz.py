@@ -1,0 +1,51 @@
+"""Wrapper of the Theorem-3.4 Lipschitz-constant kernel
+(``csrc/lipschitz.cu``), run once per coordinate-descent fit.
+
+Replaces the Pallas TPU kernel ``repro/kernels/lipschitz.py::lipschitz``.
+Unlike that kernel it takes each sample's range at ``risk_start``, so it
+equals ``core.cox.lipschitz_constants`` on tied times too. The source's
+header says what bounds it on the card and how the design answers that.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from . import _build, ref
+
+Tensor = torch.Tensor
+
+# calls that launched the CUDA kernel (the plain version counts nothing)
+launches = 0
+
+
+def lipschitz(x: Tensor, delta: Tensor,
+              risk_start: Tensor) -> Tuple[Tensor, Tensor]:
+    """(L2 (p,), L3 (p,)) of a time-sorted row-major (n, p) panel.
+
+    On a card x and delta are float32 and risk_start int32; on the CPU the
+    plain version runs, in float64 when given float64."""
+    global launches
+    if x.dim() != 2 or x.shape[0] < 1 or x.shape[1] < 1:
+        raise ValueError(f"lipschitz: x must be a non-empty (n, p) panel, "
+                         f"got shape {tuple(x.shape)}")
+    n, p = x.shape
+    on_card = _build.require(
+        "lipschitz", {"x": x, "delta": delta, "risk_start": risk_start},
+        {"x": (n, p), "delta": (n,), "risk_start": (n,)},
+        {"x": torch.float32, "delta": torch.float32,
+         "risk_start": torch.int32})
+    if not on_card:
+        return ref.lipschitz_ref(x, delta, risk_start)
+    lib = _build.library()
+    scratch = torch.empty(lib.repro_lipschitz_scratch_bytes(n, p),
+                          dtype=torch.uint8, device=x.device)
+    l2 = torch.empty(p, dtype=torch.float32, device=x.device)
+    l3 = torch.empty(p, dtype=torch.float32, device=x.device)
+    _build.check(lib.repro_lipschitz(
+        x.data_ptr(), delta.data_ptr(), risk_start.data_ptr(), n, p,
+        scratch.data_ptr(), l2.data_ptr(), l3.data_ptr(), _build.stream()),
+        "lipschitz")
+    launches += 1
+    return l2, l3

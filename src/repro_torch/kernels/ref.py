@@ -1,0 +1,98 @@
+"""Plain-PyTorch versions of every kernel.
+
+Each wrapper takes its plain version for a tensor on the CPU; the tests
+and ``chip_smoke.py`` hold the CUDA kernels against these. They mirror the
+JAX package's oracles (``repro/kernels/ref.py``) and compute in float32,
+or in float64 when given float64.
+
+``cox_coord_ref`` and ``lipschitz_ref`` also take ``risk_start``, the first
+index of each sample's tie group, and read each risk set there, as the
+Breslow definitions in ``core/cox.py`` do; ``risk_start=None`` is the
+tie-free case (every sample's risk set is its own suffix).
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+
+Tensor = torch.Tensor
+INV_6_SQRT3 = 1.0 / (6.0 * math.sqrt(3.0))
+
+
+def _work(t: Tensor) -> Tensor:
+    """``t`` in float32, or in its own type when that is wider."""
+    return t.to(torch.promote_types(t.dtype, torch.float32))
+
+
+def _suffix(v: Tensor) -> Tensor:
+    return torch.flip(torch.cumsum(torch.flip(v, (0,)), 0), (0,))
+
+
+def _at(v: Tensor, risk_start: Optional[Tensor]) -> Tensor:
+    return v if risk_start is None else v[risk_start.long()]
+
+
+def revcumsum_ref(x: Tensor) -> Tensor:
+    return _suffix(_work(x)).to(x.dtype)
+
+
+def cox_coord_ref(eta: Tensor, x: Tensor, delta: Tensor,
+                  risk_start: Optional[Tensor] = None,
+                  order: int = 2) -> Tuple[Tensor, Tensor, Tensor]:
+    """(g, h, c3) of one coordinate; c3 is 0 unless ``order`` is 3.
+
+    s0 is clamped at 1e-30 as the kernels do, so a risk set whose hazards
+    all underflow gives finite, delta-masked terms."""
+    eta, x, delta = _work(eta), _work(x), _work(delta)
+    w = torch.exp(eta - torch.max(eta))
+    s0 = torch.clamp(_at(_suffix(w), risk_start), min=1e-30)
+    m1 = _at(_suffix(w * x), risk_start) / s0
+    m2 = _at(_suffix(w * x * x), risk_start) / s0
+    g = torch.sum(delta * (m1 - x))
+    h = torch.sum(delta * (m2 - m1 * m1))
+    if order < 3:
+        return g, h, torch.zeros_like(g)
+    m3 = _at(_suffix(w * x * x * x), risk_start) / s0
+    c3 = torch.sum(delta * (m3 + 2.0 * m1 ** 3 - 3.0 * m2 * m1))
+    return g, h, c3
+
+
+def cox_batch_ref(x: Tensor, w: Tensor, r: Tensor, wa: Tensor,
+                  delta: Tensor, inv_s0: Tensor) -> Tuple[Tensor, Tensor]:
+    """All-coordinate (grad, hess_diag) from precomputed vectors."""
+    x = _work(x)
+    g = x.T @ _work(r)
+    term1 = (x * x).T @ _work(wa)
+    s1 = _suffix(_work(w)[:, None] * x)
+    m = s1 * _work(inv_s0)[:, None]
+    term2 = (_work(delta)[:, None] * m * m).sum(dim=0)
+    return g, term1 - term2
+
+
+def survival_curves_ref(eta: Tensor, h0: Tensor) -> Tensor:
+    """(b, g) S(t_g|x_b) = exp(-H0_g * exp(eta_b)), eta clipped to +/-30."""
+    risk = torch.exp(torch.clamp(_work(eta), -30.0, 30.0))
+    return torch.exp(-risk[:, None] * _work(h0)[None, :])
+
+
+def survival_curves_stratified_ref(eta: Tensor, h0: Tensor,
+                                   strata: Tensor) -> Tensor:
+    """(b, g) S = exp(-H0[strata_b, g] * exp(eta_b)); h0 is (s, g)."""
+    risk = torch.exp(torch.clamp(_work(eta), -30.0, 30.0))
+    return torch.exp(-_work(h0)[strata.long()] * risk[:, None])
+
+
+def lipschitz_ref(x: Tensor, delta: Tensor,
+                  risk_start: Optional[Tensor] = None
+                  ) -> Tuple[Tensor, Tensor]:
+    """(L2, L3) Theorem-3.4 constants of a time-sorted panel."""
+    x = _work(x)
+    smax = torch.flip(torch.cummax(torch.flip(x, (0,)), 0).values, (0,))
+    smin = torch.flip(torch.cummin(torch.flip(x, (0,)), 0).values, (0,))
+    rng = _at(smax, risk_start) - _at(smin, risk_start)
+    d = _work(delta)[:, None]
+    l2 = 0.25 * torch.sum(d * rng * rng, dim=0)
+    l3 = INV_6_SQRT3 * torch.sum(d * rng * rng * rng, dim=0)
+    return l2, l3
