@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -8,9 +8,12 @@ Phases, each printed as it runs; any failed check raises:
 
   1. device: the card's name and power limit (nvidia-smi), then the build
      of every CUDA kernel from ``src/repro_torch/kernels/csrc``;
-  2. kernels against their plain PyTorch versions on the card, on tie-free
-     data, on small tie groups and with one group of a quarter of the rows,
-     each maximum error beside its tolerance;
+  2. kernels against their plain PyTorch versions on the card, each
+     maximum error beside its tolerance: cox_coord and lipschitz on
+     tie-free data, on small tie groups and with one group of a quarter of
+     the rows; the curve panels with eta = +/-50 in the batch; revcumsum
+     and cox_batch at the streaming fit's shapes and at ragged ones, in
+     float32 and bfloat16;
   3. fit: Appendix-C data at n = 262,144, p = 1,000 (rho 0.9, k 15, seed 0),
      ``fit_cd`` with cd_quad for 10 sweeps and cd_cubic for 3; the
      objective must not rise; cox_coord must launch p x sweeps times and
@@ -22,16 +25,33 @@ Phases, each printed as it runs; any failed check raises:
   against its plain path over the first 2 sweeps of each method: the same
   kernel fit again must give the same bits, and the plain fit the same
   objective and beta within tolerance;
-  6. timings: each kernel's median time (CUDA events) and device time
-     (torch.profiler) at the main path's shapes, beside its bound and its
-     plain version's; the host time of the cox_coord wrapper's checks and
-     counters; the device's idle share over one sweep of each method.
+  5b. stratified scoring: the artifact of phase 3's data and beta with 8
+     strata, scored with stratum indices on 1, 64 and 4,096 requests
+     against the closed form exp(-H0[strata] exp(clip(x beta)));
+  6. timings of the first slice's kernels: each kernel's median time (CUDA
+     events) and device time (torch.profiler) at the main path's shapes,
+     beside its bound and its plain version's; the host time of the
+     cox_coord wrapper's checks and counters; the device's idle share over
+     one sweep of each method;
+  7. streaming fit: n = 4,194,304 rows, p = 1,000, in 64 chunks of 65,536
+     made on the card from a seed; ``fit_stream`` for 3 epochs in global
+     mode and 3 in chunk mode; the objective must not rise; cox_batch must
+     launch 64 x epochs times in chunk mode and revcumsum at least
+     64 x (1 + 3 x epochs) times in global mode; seconds per epoch and the
+     device's idle share over one profiled epoch. Then, with the counts
+     read, the kernel path against the plain path over 2 epochs of each
+     mode (bits repeated, objective and beta within tolerance), and 4
+     chunks held as numpy arrays on the host against the same chunks on
+     the card;
+  8. timings of the second slice's kernels at the streaming and scoring
+     shapes, beside their bounds, their plain versions' and, for
+     revcumsum, torch.cumsum's.
 
-Kernel launch counts are zeroed just before phase 3 and read just after
-phase 5. The line before the last is one JSON object with every kernel's
-numbers; the last is ``{"ok": true, "device": {...}}``. Without CUDA, or
-without the repository beside it, the script exits nonzero and prints no
-result.
+Kernel launch counts are zeroed just before each path (phases 3-5, 5b and
+7) and read just after it. The line before the last but one is one JSON
+object with every kernel's numbers, then the card's name and power limit;
+the last is ``{"ok": true, "device": {...}}``. Without CUDA, or without the
+repository beside it, the script exits nonzero and prints no result.
 """
 from __future__ import annotations
 
@@ -49,6 +69,11 @@ SRC = ROOT / "src"
 N, P, RHO, K, SEED = 262_144, 1_000, 0.9, 15, 0
 QUAD_SWEEPS, CUBIC_SWEEPS, COMPARE_SWEEPS = 10, 3, 2
 BATCHES = (1, 64, 4096)
+STRATA = 8
+# the streaming fit: 64 chunks of the reference's default chunk size
+# (src/repro/launch/runtime.py), at the main path's width
+STREAM_N, STREAM_CHUNK, STREAM_LAM2 = 4_194_304, 65_536, 0.01
+STREAM_EPOCHS, STREAM_COMPARE_EPOCHS, HOST_CHUNKS = 3, 2, 4
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM, NVIDIA data sheet
 FP32_OPS_PER_S = 67e12          # H100 SXM, non-tensor float32
 
@@ -67,13 +92,36 @@ BETA_RTOL = 1e-4     # max |beta, kernel - plain| / max |beta| after those
                      # steps
 MONO_RTOL = 1e-6     # allowed objective rise per sweep, float32 round-off
 ARTIFACT_RTOL = 1e-4  # float32 baseline, card vs CPU cumulative sums
+REVCUMSUM_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
+                     # |kernel - plain| / suffix(|x|) per element: float32
+                     # sums in two orders over up to 256 + 256 terms
+                     # (kernel) and a tree scan (plain), worst case ~3e-5;
+                     # bfloat16 adds one output rounding each, 2^-7
+COX_BATCH_TOL = 2e-5  # |kernel - plain| / sum_i |term_i| per column: the
+                     # kernel sums in float64, the plain version in float32
+                     # over up to 65,536 terms; bfloat16 x is read exactly
+                     # by both, so the same tolerance holds
+STREAM_DTOL = 1e-3   # |objective, kernel - plain| over the compared epochs,
+                     # in units of the plain path's first-epoch decrease;
+                     # the objective is ~3e7 with a float32 ulp of 2
+STREAM_BETA_RTOL = 1e-3  # max |beta, kernel - plain| / max |beta|: the
+                     # paths differ in the local scans' and the panel
+                     # sums' order, and each step is (g, h)'s ratio
 
-# the TPU kernel each CUDA kernel replaces (its pallas_call)
+# the TPU kernel each CUDA kernel replaces (its pallas_call), and the path
+# whose launch count the kernels line reports
 REPLACES = {
     "cox_coord": "src/repro/kernels/cox_coord.py:101",
     "lipschitz": "src/repro/kernels/lipschitz.py:78",
     "survival_curves": "src/repro/kernels/survival_curves.py:47",
+    "revcumsum": "src/repro/kernels/revcumsum.py:55",
+    "cox_batch": "src/repro/kernels/cox_batch.py:79",
+    "survival_curves_stratified": "src/repro/kernels/survival_curves.py:98",
 }
+PATH_OF = {"cox_coord": "fit and serve", "lipschitz": "fit and serve",
+           "survival_curves": "fit and serve",
+           "survival_curves_stratified": "stratified scoring",
+           "revcumsum": "streaming fit", "cox_batch": "streaming fit"}
 
 
 def log(msg: str) -> None:
@@ -255,6 +303,131 @@ def check_kernels(coord_ns=(1, 1000, N), lip_ps=(1, 37, P), lip_n=N,
     return errs
 
 
+def _suffix_abs(x):
+    """suffix(|x|) along rows in float64: the scale of a scan's error."""
+    from repro_torch.kernels import ref
+
+    return ref._suffix(x.double().abs())
+
+
+def batch_vectors(eta, delta):
+    """(w, r, wa, delta, inv_s0) as ops.cox_batch_grad_hess forms them."""
+    import torch
+
+    from repro_torch.kernels import ref
+
+    w = torch.exp(eta - torch.max(eta))
+    inv_s0 = 1.0 / ref._suffix(w)
+    wa = w * torch.cumsum(delta * inv_s0, 0)
+    return w, wa - delta, wa, delta, inv_s0
+
+
+def _batch_scales(x, w, r, wa, delta, inv_s0):
+    """Per column sum_i |term_i| of grad and hess_diag, in float64."""
+    from repro_torch.kernels import ref
+
+    x, w, r, wa = x.double(), w.double(), r.double(), wa.double()
+    m = ref._suffix(w[:, None] * x) * inv_s0.double()[:, None]
+    sg = r.abs() @ x.abs()
+    sh = wa @ (x * x) + delta.double() @ (m * m)
+    return sg, sh
+
+
+def check_stream_kernels(scan_shapes=((65_536, 1_000), (65_536,), (1, 1),
+                                      (777, 3), (4_097, 1_000)),
+                         batch_shapes=((65_536, 1_000), (1, 1), (2_050, 70)),
+                         strat_shapes=((1, 1, 16), (37, 5, 257),
+                                       (4_096, STRATA, 128))) -> dict:
+    """The second slice's kernels against their plain versions on the
+    card; returns the largest absolute error of each, in float32 and, for
+    the panel kernels, bfloat16."""
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.cox_batch import cox_batch
+    from repro_torch.kernels.revcumsum import revcumsum
+    from repro_torch.kernels.survival_curves import \
+        survival_curves_stratified
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    errs = {"revcumsum": 0.0, "cox_batch": 0.0,
+            "survival_curves_stratified": 0.0}
+    errs_bf16 = {"revcumsum": 0.0, "cox_batch": 0.0}
+
+    def randn(*shape):
+        return torch.randn(*shape, device="cuda", generator=gen)
+
+    for shape in scan_shapes:
+        x32 = randn(*shape)
+        for dtype in ("float32", "bfloat16"):
+            x = x32.to(getattr(torch, dtype))
+            got = revcumsum(x)
+            want = ref.revcumsum_ref(x)
+            torch.cuda.synchronize()
+            err = (got.double() - want.double()).abs()
+            rel = float((err / _suffix_abs(x).clamp_min(1e-30)).max())
+            check(got.dtype == x.dtype and got.shape == x.shape
+                  and bool(torch.isfinite(got).all()),
+                  f"revcumsum {shape} {dtype}: output")
+            log(f"  revcumsum {shape} {dtype}: max |err| {float(err.max()):.3e},"
+                f" max |err|/suffix|x| {rel:.3e} (tol "
+                f"{REVCUMSUM_TOL[dtype]:.0e})")
+            check(rel <= REVCUMSUM_TOL[dtype], f"revcumsum {shape} {dtype}")
+            into = errs if dtype == "float32" else errs_bf16
+            into["revcumsum"] = max(into["revcumsum"], float(err.max()))
+            del got, want, err, x
+        del x32
+        torch.cuda.empty_cache()
+
+    for n, p in batch_shapes:
+        x32 = randn(n, p)
+        eta = randn(n) * 0.5
+        d = (torch.rand(n, device="cuda", generator=gen) < 0.7).float()
+        vecs = batch_vectors(eta, d)
+        for dtype in ("float32", "bfloat16"):
+            x = x32.to(getattr(torch, dtype))
+            got = cox_batch(x, *vecs)
+            want = ref.cox_batch_ref(x, *vecs)
+            torch.cuda.synchronize()
+            scales = _batch_scales(x, *vecs)
+            err = [(g.double() - w_.double()).abs()
+                   for g, w_ in zip(got, want)]
+            rel = max(float((e / sc.clamp_min(1e-30)).max())
+                      for e, sc in zip(err, scales))
+            abs_err = max(float(e.max()) for e in err)
+            log(f"  cox_batch n={n} p={p} {dtype}: max |err| {abs_err:.3e}, "
+                f"max |err|/sum|terms| {rel:.3e} (tol {COX_BATCH_TOL:.0e})")
+            check(rel <= COX_BATCH_TOL
+                  and all(bool(torch.isfinite(g).all()) for g in got),
+                  f"cox_batch n={n} p={p} {dtype}")
+            into = errs if dtype == "float32" else errs_bf16
+            into["cox_batch"] = max(into["cox_batch"], abs_err)
+            del x
+        del x32
+        torch.cuda.empty_cache()
+
+    for b, s, g in strat_shapes:
+        eta = randn(b) * 3.0
+        eta[0] = 50.0
+        if b > 1:
+            eta[1] = -50.0
+        h0 = torch.cumsum(torch.rand(s, g, device="cuda", generator=gen),
+                          1) * 0.05
+        strata = torch.randint(0, s, (b,), device="cuda", generator=gen,
+                               dtype=torch.int32)
+        got = survival_curves_stratified(eta, h0, strata)
+        want = ref.survival_curves_stratified_ref(eta, h0, strata)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        log(f"  survival_curves_stratified b={b} s={s} g={g}: max |err| "
+            f"{err:.3e} (tol {CURVES_ATOL:.0e})")
+        check(err <= CURVES_ATOL and bool(torch.isfinite(got).all()),
+              f"survival_curves_stratified b={b} s={s} g={g}")
+        errs["survival_curves_stratified"] = max(
+            errs["survival_curves_stratified"], err)
+    return {"float32": errs, "bfloat16": errs_bf16}
+
+
 # ---------------------------------------------------------------------------
 # Phases 3-5: the main path
 # ---------------------------------------------------------------------------
@@ -383,7 +556,7 @@ def main_path(x, t, delta) -> dict:
         if engine.use_sparse:
             qt = qt[:, torch.as_tensor(model.support, device="cuda").long()]
         eta = torch.clamp(qt @ bt, -30.0, 30.0)
-        s_ref = torch.exp(-engine._h0[None, :] * torch.exp(eta)[:, None])
+        s_ref = torch.exp(-engine._h0[0][None, :] * torch.exp(eta)[:, None])
         s_ref = s_ref.cpu().numpy()
         err_c = float(np.max(np.abs(curves - s_ref)))
         err_r = float(np.max(np.abs(risk - torch.exp(eta).cpu().numpy())
@@ -411,6 +584,243 @@ def main_path(x, t, delta) -> dict:
             "fits": {"cd_quad": quad, "cd_cubic": cubic},
             "quad_sweep_s": quad_sweep_s, "cubic_sweep_s": cubic_sweep_s,
             "batch_s": batch_s}
+
+
+# ---------------------------------------------------------------------------
+# Phase 5b: stratified scoring
+# ---------------------------------------------------------------------------
+
+def stratified_scoring(x, t, delta, beta) -> dict:
+    """The artifact of ``x, t, delta`` and ``beta`` with STRATA strata,
+    scored with stratum indices against the closed form; returns seconds
+    per scored batch."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.serving import ScoringEngine, fit_survival_model
+
+    log("phase 5b: stratified scoring")
+    strata = np.random.default_rng(SEED + 2).integers(0, STRATA, len(t))
+    model = fit_survival_model(x, t, delta, beta, strata=strata)
+    h0 = model.base_cumhaz
+    check(model.n_strata == STRATA and np.all(np.isfinite(h0))
+          and np.all(np.diff(h0, axis=1) >= 0), "stratified baselines")
+    engine = ScoringEngine(model)
+    h0_dev = torch.as_tensor(h0, device="cuda")
+    rng = np.random.default_rng(SEED + 3)
+    batch_s = {}
+    for b in BATCHES:
+        q = x[rng.integers(0, x.shape[0], b)]
+        sq = rng.integers(0, STRATA, b)
+        risk, med, curves = engine.score(q, sq, with_curves=True)
+        qt = torch.as_tensor(q, device="cuda")
+        if engine.use_sparse:
+            qt = qt[:, torch.as_tensor(model.support, device="cuda").long()]
+        eta = torch.clamp(qt @ engine._beta, -30.0, 30.0)
+        s_ref = torch.exp(-h0_dev[torch.as_tensor(sq, device="cuda")]
+                          * torch.exp(eta)[:, None]).cpu().numpy()
+        risk_ref = torch.exp(eta).cpu().numpy()
+        err_c = float(np.max(np.abs(curves - s_ref)))
+        err_r = float(np.max(np.abs(risk - risk_ref) / risk_ref))
+        below = s_ref <= 0.5
+        med_ref = np.where(below.any(1), model.time_grid[below.argmax(1)],
+                           np.inf)
+        check(curves.shape == (b, model.n_grid) and np.isfinite(curves).all()
+              and err_c <= CURVES_ATOL and err_r <= 1e-5
+              and np.array_equal(med, med_ref), f"stratified batch {b}")
+        reps = 20
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            engine.score(q, sq, with_curves=True)
+        batch_s[b] = (time.perf_counter() - t0) / reps
+        log(f"  batch {b}: curves max |err| {err_c:.3e} (tol "
+            f"{CURVES_ATOL:.0e}), risk rel err {err_r:.3e}; "
+            f"{batch_s[b] * 1e3:.3f} ms per scored batch "
+            f"(strata={STRATA}, sparse={engine.use_sparse})")
+    check(ops.launch_counts()["survival_curves"] == 0,
+          "a stratified model launched the single-baseline kernel")
+    return {"batch_s": batch_s, "h0": engine._h0}
+
+
+# ---------------------------------------------------------------------------
+# Phase 7: the streaming fit
+# ---------------------------------------------------------------------------
+
+def make_stream_chunks(n: int, p: int, chunk_rows: int, seed: int):
+    """Tie-free chunks made on the card, in ascending time by row index:
+    x ~ 0.5 N(0, 1), p/8 true coefficients of +/-1, and events with
+    probability 0.3 + 0.4 sigmoid(x beta*), as the reference's
+    benchmarks/bench_scale.py::SyntheticChunkSource makes them on the
+    host (the generators differ, so the numbers do)."""
+    import torch
+
+    from repro_torch.core.streaming import Chunk
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    k = max(p // 8, 1)
+    beta_star = torch.zeros(p, device="cuda")
+    idx = torch.randperm(p, device="cuda", generator=gen)[:k]
+    beta_star[idx] = (torch.randint(0, 2, (k,), device="cuda", generator=gen)
+                      * 2 - 1).float()
+    chunks = []
+    for _ in range(n // chunk_rows):
+        x = torch.randn(chunk_rows, p, device="cuda", generator=gen) * 0.5
+        pr = torch.sigmoid(x @ beta_star)
+        u = torch.rand(chunk_rows, device="cuda", generator=gen)
+        chunks.append(Chunk(x=x, delta=(u < 0.3 + 0.4 * pr).float()))
+    return chunks
+
+
+def run_stream_fit(chunks, mode: str, epochs: int):
+    import torch
+
+    from repro_torch.core import solvers
+    from repro_torch.kernels import ops
+
+    before = ops.launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = solvers.fit_stream(chunks, lam2=STREAM_LAM2, n_epochs=epochs,
+                             mode=mode)
+    obj = res.objective.cpu().double()
+    seconds = time.perf_counter() - t0
+    after = ops.launch_counts()
+    launched = {k: after[k] - before[k] for k in after}
+    k, e = len(chunks), res.n_iters
+    log(f"  {mode}: {e} epochs in {seconds:.3f} s ({seconds / e:.4f} s per "
+        f"epoch, the start objective included); objective "
+        f"{obj.tolist()}; launches {launched}")
+    check(e == epochs and bool(torch.isfinite(obj).all()),
+          f"{mode}: {e} epochs of {epochs}, objective {obj.tolist()}")
+    check(bool((obj[1:] <= obj[:-1]).all()),
+          f"{mode}: objective rose: {obj.tolist()}")
+    if mode == "chunk":
+        check(launched["cox_batch"] == k * e,
+              f"chunk mode: cox_batch launched {launched['cox_batch']} "
+              f"times, expected chunks x epochs = {k * e}")
+    else:
+        check(launched["revcumsum"] >= k * (1 + 3 * e),
+              f"global mode: revcumsum launched {launched['revcumsum']} "
+              f"times, expected at least {k * (1 + 3 * e)}")
+    return res, seconds / e
+
+
+def _start_objective(chunks, mode: str) -> float:
+    """The plain path's objective at beta = 0."""
+    import torch
+
+    from repro_torch.core import streaming
+
+    zero = torch.zeros(chunks[0].x.shape[1], device="cuda")
+    return float(streaming.streaming_loss(chunks, zero, use_kernel=False)
+                 if mode == "global" else
+                 streaming.stratified_loss(chunks, zero))
+
+
+def _fits_agree(what: str, got, want, f0: float) -> None:
+    """``got``'s objective within STREAM_DTOL of ``want``'s first-epoch
+    decrease from ``f0``, and its beta within STREAM_BETA_RTOL."""
+    wobj = want.objective.cpu().double()
+    decrease = f0 - float(wobj[0])
+    dobj = float((got.objective.cpu().double() - wobj).abs().max())
+    dbeta = float((got.beta - want.beta).abs().max())
+    bmax = float(want.beta.abs().max())
+    log(f"  {what}: objective {wobj.tolist()} from {f0:.1f}, first-epoch "
+        f"decrease {decrease:.3f}; max |objective diff| {dobj:.3f} = "
+        f"{dobj / decrease:.3e} of it (tol {STREAM_DTOL:.0e}); max |beta "
+        f"diff| {dbeta:.3e} of max |beta| {bmax:.4f} = {dbeta / bmax:.3e} "
+        f"(tol {STREAM_BETA_RTOL:.0e})")
+    check(decrease > 0 and dobj <= STREAM_DTOL * decrease,
+          f"{what}: objectives differ")
+    check(dbeta <= STREAM_BETA_RTOL * bmax, f"{what}: betas differ")
+
+
+def compare_stream_fits(chunks, fits) -> None:
+    """The streaming fit's kernel path against its plain path over the
+    first STREAM_COMPARE_EPOCHS epochs of each mode. Run after the path's
+    launch counts are read: these launches only compare."""
+    import torch
+
+    from repro_torch.core import solvers
+
+    log("streaming fit: kernel path against the plain path")
+    for mode, main in fits.items():
+        kern, plain = (solvers.fit_stream(
+            chunks, lam2=STREAM_LAM2, n_epochs=STREAM_COMPARE_EPOCHS,
+            mode=mode, use_kernel=use) for use in (True, False))
+        same = torch.equal(kern.objective,
+                           main.objective[:STREAM_COMPARE_EPOCHS])
+        log(f"  {mode}, {STREAM_COMPARE_EPOCHS} epochs: kernel fit repeats "
+            f"the main fit's objective bit for bit: {same}")
+        check(same, f"{mode}: the kernel fit did not repeat its bits")
+        _fits_agree(f"{mode}, kernel path against the plain path", kern,
+                    plain, _start_objective(chunks, mode))
+
+
+def check_host_chunks(chunks) -> None:
+    """HOST_CHUNKS chunks held as numpy arrays on the host, moved to the
+    card when touched, against the same chunks on the card."""
+    import torch
+
+    from repro_torch.core import solvers
+    from repro_torch.core.streaming import Chunk
+
+    dev = chunks[:HOST_CHUNKS]
+    host = [Chunk(x=c.x.cpu().numpy(), delta=c.delta.cpu().numpy())
+            for c in dev]
+    for mode in ("global", "chunk"):
+        a, b = (solvers.fit_stream(src, lam2=STREAM_LAM2,
+                                   n_epochs=STREAM_COMPARE_EPOCHS, mode=mode)
+                for src in (host, dev))
+        check(a.beta.device.type == "cuda", f"{mode}: host chunks' fit ran "
+              f"on {a.beta.device}")
+        same = (torch.equal(a.objective, b.objective)
+                and torch.equal(a.beta, b.beta))
+        log(f"  {mode}, {HOST_CHUNKS} x {STREAM_CHUNK} rows as numpy chunks: "
+            f"bit for bit equal to the card's chunks: {same}")
+        _fits_agree(f"{mode}, numpy chunks against card chunks", a, b,
+                    _start_objective(dev, mode))
+
+
+def streaming_phase() -> dict:
+    """Phase 7; returns seconds and idle shares per epoch by mode."""
+    import torch
+
+    from repro_torch.core import solvers
+    from repro_torch.kernels import ops
+
+    log("phase 7: streaming fit")
+    t0 = time.perf_counter()
+    chunks = make_stream_chunks(STREAM_N, P, STREAM_CHUNK, SEED)
+    torch.cuda.synchronize()
+    events = int(sum(float(c.delta.sum()) for c in chunks))
+    log(f"  n={STREAM_N} p={P} in {len(chunks)} chunks of {STREAM_CHUNK} "
+        f"rows, {events} events, made on the card in "
+        f"{time.perf_counter() - t0:.2f} s; "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
+    ops.reset_launch_counts()
+    fits, epoch_s = {}, {}
+    for mode in ("global", "chunk"):
+        fits[mode], epoch_s[mode] = run_stream_fit(chunks, mode,
+                                                   STREAM_EPOCHS)
+    launches = ops.launch_counts()
+    log(f"  streaming path launches: {launches}")
+    for name in ("revcumsum", "cox_batch"):
+        check(launches[name] > 0, f"{name} did not launch on the streaming "
+              f"path")
+    compare_stream_fits(chunks, fits)
+    check_host_chunks(chunks)
+    idle = {}
+    for mode in ("global", "chunk"):
+        busy, wall = device_ms(lambda i: solvers.fit_stream(
+            chunks, lam2=STREAM_LAM2, n_epochs=1, mode=mode), reps=1)
+        idle[mode] = 1 - busy / wall
+        log(f"  one {mode} epoch (with its start objective): wall "
+            f"{wall / 1e3:.4f} s, device busy {busy / 1e3:.4f} s -> device "
+            f"idle {idle[mode]:.1%}")
+    log(f"  peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB allocated")
+    return {"launches": launches, "epoch_s": epoch_s, "idle": idle}
 
 
 # ---------------------------------------------------------------------------
@@ -474,11 +884,12 @@ def timings(state) -> dict:
     log(f"  lipschitz with the last quarter of the rows in one tie group: "
         f"{events_ms(lambda i: lipschitz(data.x, data.delta, quarter), 3):.4f}"
         f" ms a call by CUDA events")
-    b, g = BATCHES[-1], engine._h0.shape[0]
+    h0 = engine._h0[0]
+    b, g = BATCHES[-1], h0.shape[0]
     e = torch.randn(b, device="cuda")
     out["survival_curves"] = (
-        kernel_ms(lambda i: survival_curves(e, engine._h0), reps=200),
-        kernel_ms(lambda i: ref.survival_curves_ref(e, engine._h0), reps=200),
+        kernel_ms(lambda i: survival_curves(e, h0), reps=200),
+        kernel_ms(lambda i: ref.survival_curves_ref(e, h0), reps=200),
         _bound(4.0 * (b + g + b * g), 3.0 * b * g))
     log(f"  cox_coord wrapper checks and counters: "
         f"{wrapper_overhead_us(data):.2f} us of host time a call")
@@ -495,6 +906,69 @@ def timings(state) -> dict:
             f"{bound * 1e3:.2f} us by {by} (3.35 TB/s) -> device time at "
             f"{bound / dev:.1%} of bound")
     return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 8: the second slice's kernels at their paths' shapes
+# ---------------------------------------------------------------------------
+
+def stream_timings(strat_h0) -> tuple:
+    """(times as timings() gives them, library-call ms) of revcumsum and
+    cox_batch at one streaming chunk's panel and of the stratified curves
+    at the largest scored batch."""
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.cox_batch import cox_batch
+    from repro_torch.kernels.revcumsum import revcumsum
+    from repro_torch.kernels.survival_curves import \
+        survival_curves_stratified
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    n, p = STREAM_CHUNK, P
+    x = torch.randn(n, p, device="cuda", generator=gen) * 0.5
+    eta = torch.randn(n, device="cuda", generator=gen) * 0.5
+    d = (torch.rand(n, device="cuda", generator=gen) < 0.5).float()
+    vecs = batch_vectors(eta, d)
+    w = vecs[0]
+    out, library = {}, {}
+    # revcumsum as global mode calls it on the (chunk_rows, p) panel w x;
+    # torch.cumsum along rows is the one library call that does the scan
+    out["revcumsum"] = (
+        kernel_ms(lambda i: revcumsum(x), reps=50),
+        kernel_ms(lambda i: ref.revcumsum_ref(x), reps=20),
+        _bound(8.0 * n * p, 1.0 * n * p))
+    library["revcumsum"] = events_ms(lambda i: torch.cumsum(x, 0), reps=50)
+    vec_ms = kernel_ms(lambda i: revcumsum(w), reps=200)
+    vec_bound, _ = _bound(8.0 * n, 1.0 * n)
+    log(f"  revcumsum on the (chunk_rows,) = ({n},) hazard vector: median "
+        f"{vec_ms[0] * 1e3:.2f} us by CUDA events, device time "
+        f"{vec_ms[1] * 1e3:.2f} us; bound {vec_bound * 1e3:.3f} us")
+    out["cox_batch"] = (
+        kernel_ms(lambda i: cox_batch(x, *vecs), reps=50),
+        kernel_ms(lambda i: ref.cox_batch_ref(x, *vecs), reps=20),
+        _bound(4.0 * n * p + 20.0 * n + 8.0 * p, 11.0 * n * p))
+    library["cox_batch"] = None
+    b, (s, g) = BATCHES[-1], strat_h0.shape
+    e = torch.randn(b, device="cuda", generator=gen)
+    st = torch.randint(0, s, (b,), device="cuda", generator=gen,
+                       dtype=torch.int32)
+    out["survival_curves_stratified"] = (
+        kernel_ms(lambda i: survival_curves_stratified(e, strat_h0, st),
+                  reps=200),
+        kernel_ms(lambda i: ref.survival_curves_stratified_ref(e, strat_h0,
+                                                               st), reps=200),
+        _bound(4.0 * (2 * b + s * g + b * g), 3.0 * b * g))
+    library["survival_curves_stratified"] = None
+    for name, ((ms, dev), (plain, plain_dev), (bound, by)) in out.items():
+        lib_ms = library[name]
+        log(f"  {name}: median {ms * 1e3:.2f} us a call by CUDA events, "
+            f"device time {dev * 1e3:.2f} us; plain version "
+            f"{plain * 1e3:.2f} us, device {plain_dev * 1e3:.2f} us; "
+            + (f"torch.cumsum {lib_ms * 1e3:.2f} us; " if lib_ms else "")
+            + f"bound {bound * 1e3:.2f} us by {by} (3.35 TB/s, 67 TFLOP/s) "
+            f"-> device time at {bound / dev:.1%} of bound")
+    return out, library
 
 
 # ---------------------------------------------------------------------------
@@ -530,35 +1004,71 @@ def main() -> int:
 
     log("phase 2: kernels against their plain versions")
     errs = check_kernels()
+    stream_errs = check_stream_kernels()
+    errs.update(stream_errs["float32"])
+    errs_bf16 = stream_errs["bfloat16"]
 
     t0 = time.perf_counter()
     x, t, delta, _ = make_correlated_survival(
         SyntheticSpec(n=N, p=P, k=K, rho=RHO, seed=SEED))
     log(f"  Appendix-C data made in {time.perf_counter() - t0:.1f} s")
+    launches = {}
     ops.reset_launch_counts()
     state = main_path(x, t, delta)
-    launches = ops.launch_counts()
-    log(f"  main path launches: {launches}")
-    for name, count in launches.items():
-        check(count > 0, f"{name} did not launch on the main path")
+    launches["fit and serve"] = ops.launch_counts()
+    log(f"  main path launches: {launches['fit and serve']}")
+    for name in ("cox_coord", "lipschitz", "survival_curves"):
+        check(launches["fit and serve"][name] > 0,
+              f"{name} did not launch on the main path")
     compare_fits(state["data"], state["lam1"], state["lam2"], state["fits"])
 
-    log("phase 6: timings")
+    ops.reset_launch_counts()
+    strat = stratified_scoring(x, t, delta,
+                               state["fits"]["cd_quad"].beta.cpu().numpy())
+    launches["stratified scoring"] = ops.launch_counts()
+    log(f"  stratified scoring launches: {launches['stratified scoring']}")
+    check(launches["stratified scoring"]["survival_curves_stratified"] > 0,
+          "survival_curves_stratified did not launch on the stratified path")
+
+    log("phase 6: timings of the first slice's kernels")
     times = timings(state)
+    library = dict.fromkeys(times)
     log(f"  seconds per CD sweep: cd_quad {state['quad_sweep_s']:.4f}, "
         f"cd_cubic {state['cubic_sweep_s']:.4f}; seconds per scored batch: "
         + ", ".join(f"b={b} {s:.6f}" for b, s in state["batch_s"].items()))
+    del state, x, t, delta
+    torch.cuda.empty_cache()
+
+    stream = streaming_phase()
+    launches["streaming fit"] = stream["launches"]
+    torch.cuda.empty_cache()
+
+    log("phase 8: timings of the second slice's kernels")
+    more, more_library = stream_timings(strat["h0"])
+    times.update(more)
+    library.update(more_library)
+    log("  seconds per streaming epoch: "
+        + ", ".join(f"{m} {s:.4f} (device idle {stream['idle'][m]:.1%})"
+                    for m, s in stream["epoch_s"].items())
+        + "; seconds per scored stratified batch: "
+        + ", ".join(f"b={b} {s:.6f}" for b, s in strat["batch_s"].items()))
     log(f"  total {time.perf_counter() - t_start:.1f} s")
 
     kernels = []
     for name, ((ms, dev), (plain, _), (bound, by)) in times.items():
+        source = f"src/repro_torch/kernels/csrc/{name}.cu"
+        check((ROOT / source).is_file(), f"{name}: no source {source}")
         kernels.append({
-            "name": name, "route": "cuda",
-            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
-            "replaces": REPLACES[name], "launches": launches[name],
+            "name": name, "route": "cuda", "source": source,
+            "replaces": REPLACES[name],
+            "launches": launches[PATH_OF[name]][name],
             "max_abs_err": errs[name], "ms": ms, "plain_ms": plain,
-            "bound_ms": bound, "bound_by": by, "library_ms": None,
-            "device_ms": dev})
+            "bound_ms": bound, "bound_by": by, "library_ms": library[name],
+            "device_ms": dev, "path": PATH_OF[name],
+            **({"max_abs_err_bf16": errs_bf16[name]}
+               if name in errs_bf16 else {})})
+    check(sorted(k["name"] for k in kernels) == sorted(REPLACES),
+          "the kernels line lacks a kernel")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

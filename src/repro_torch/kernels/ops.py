@@ -16,8 +16,11 @@ from typing import Dict, Tuple
 import torch
 
 from ..obs import metrics as obs_metrics
+from . import cox_batch as _cox_batch
 from . import cox_coord as _cox_coord
 from . import lipschitz as _lipschitz
+from . import ref
+from . import revcumsum as _revcumsum
 from . import survival_curves as _survival_curves
 
 Tensor = torch.Tensor
@@ -26,8 +29,14 @@ _M_DISPATCH = obs_metrics.REGISTRY.counter(
     "kernel_dispatch_total", "kernel dispatches by route",
     ("kernel", "route"))
 
-_WRAPPERS = {"cox_coord": _cox_coord, "lipschitz": _lipschitz,
-             "survival_curves": _survival_curves}
+# kernel name -> (wrapper module, name of its launch count)
+_WRAPPERS = {"cox_coord": (_cox_coord, "launches"),
+             "lipschitz": (_lipschitz, "launches"),
+             "survival_curves": (_survival_curves, "launches"),
+             "revcumsum": (_revcumsum, "launches"),
+             "cox_batch": (_cox_batch, "launches"),
+             "survival_curves_stratified": (_survival_curves,
+                                            "stratified_launches")}
 
 
 def _count(kernel: str, t: Tensor) -> None:
@@ -37,12 +46,19 @@ def _count(kernel: str, t: Tensor) -> None:
 
 def launch_counts() -> Dict[str, int]:
     """Kernel launches per wrapper since the last reset."""
-    return {name: mod.launches for name, mod in _WRAPPERS.items()}
+    return {name: getattr(mod, attr)
+            for name, (mod, attr) in _WRAPPERS.items()}
 
 
 def reset_launch_counts() -> None:
-    for mod in _WRAPPERS.values():
-        mod.launches = 0
+    for mod, attr in _WRAPPERS.values():
+        setattr(mod, attr, 0)
+
+
+def revcumsum(x: Tensor) -> Tensor:
+    """Suffix sum along axis 0; takes (n,) or (n, m)."""
+    _count("revcumsum", x)
+    return _revcumsum.revcumsum(x)
 
 
 def cox_coord_grad_hess(eta: Tensor, x: Tensor, delta: Tensor,
@@ -68,7 +84,33 @@ def lipschitz_constants(x: Tensor, delta: Tensor,
     return _lipschitz.lipschitz(x, delta, risk_start)
 
 
+def cox_batch_grad_hess(eta: Tensor, x: Tensor,
+                        delta: Tensor) -> Tuple[Tensor, Tensor]:
+    """All-coordinate (grad, hess_diag) of tie-free, time-sorted rows.
+
+    The O(n) vectors are formed here in plain torch, in float32 (float64
+    when given float64), as the reference leaves them to XLA; the O(n p)
+    panel work runs in the kernel."""
+    _count("cox_batch", x)
+    wt = torch.promote_types(torch.promote_types(eta.dtype, x.dtype),
+                             torch.float32)
+    eta, d = eta.to(wt), delta.to(wt)
+    w = torch.exp(eta - torch.max(eta))
+    inv_s0 = 1.0 / ref._suffix(w)
+    wa = w * torch.cumsum(d * inv_s0, 0)
+    return _cox_batch.cox_batch(x, w, wa - d, wa, d, inv_s0)
+
+
 def survival_curves(eta: Tensor, h0: Tensor) -> Tensor:
     """Fused (batch x grid) survival curves: the serving hot path."""
     _count("survival_curves", eta)
     return _survival_curves.survival_curves(eta, h0)
+
+
+def survival_curves_stratified(eta: Tensor, h0: Tensor,
+                               strata: Tensor) -> Tensor:
+    """Curves with a baseline row per request: h0 is (s, g), strata (b,)
+    row indices; the row is read inside the kernel, never gathered into a
+    (b, g) copy."""
+    _count("survival_curves_stratified", eta)
+    return _survival_curves.survival_curves_stratified(eta, h0, strata)

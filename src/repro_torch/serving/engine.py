@@ -20,10 +20,13 @@ built query callable per (kind, bucket, feature width) and counts each
 build in ``compiles``, as the reference counts its jit compilations; here a
 build is a Python closure, since PyTorch runs eagerly.
 
-The curve panel runs through the ``survival_curves`` kernel; ``x @ beta``
+The curve panel of a single-stratum model runs through the
+``survival_curves`` kernel. A stratified model keeps its (s, g) baseline
+table on the device and runs through ``survival_curves_stratified``,
+which reads each request's row inside the kernel; stratum indices are
+padded with zeros to the bucket and checked on the host. ``x @ beta``
 stays ``torch.matmul``. Not yet ported: ``shard=`` (data-parallel scoring,
-ROADMAP A7) and models with more than one stratum (their kernel is B6);
-both raise ``NotImplementedError``.
+ROADMAP A7), which raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -64,10 +67,6 @@ class ScoringEngine:
         if shard is not None:
             raise NotImplementedError(
                 "sharded scoring (shard=) is not ported yet: ROADMAP A7")
-        if model.n_strata > 1:
-            raise NotImplementedError(
-                "models with more than one stratum need the stratified "
-                "curve kernel, not ported yet: ROADMAP B6")
         self.device = _device.resolve(device)
         self.model = model
         if use_sparse is None:
@@ -79,7 +78,7 @@ class ScoringEngine:
                          if model.support is not None else None)
         beta = model.beta_support if self.use_sparse else model.beta
         self._beta = self._put(beta)
-        self._h0 = self._put(model.base_cumhaz[0])
+        self._h0 = self._put(model.base_cumhaz)   # (s, g)
         self._grid = self._put(model.time_grid)
         self._cache: dict = {}
         self.compiles = 0
@@ -132,12 +131,15 @@ class ScoringEngine:
     def _build(self, kind: str):
         h0 = self._h0
         grid = self._grid
+        stratified = h0.shape[0] > 1
 
         def eta_of(xb, beta):
             return torch.clamp(xb @ beta, -_ETA_CLIP, _ETA_CLIP)
 
-        def curves(xb, beta):
-            return ops.survival_curves(xb @ beta, h0)
+        def curves(xb, beta, strata):
+            if stratified:
+                return ops.survival_curves_stratified(xb @ beta, h0, strata)
+            return ops.survival_curves(xb @ beta, h0[0])
 
         def median_of(s):
             below = s <= 0.5
@@ -146,16 +148,16 @@ class ScoringEngine:
             return torch.where(hit, grid[idx], torch.inf)
 
         if kind == "risk":
-            def fn(xb, beta):
+            def fn(xb, beta, strata):
                 return torch.exp(eta_of(xb, beta))
         elif kind == "curves":
             fn = curves
         elif kind == "median":
-            def fn(xb, beta):
-                return median_of(curves(xb, beta))
+            def fn(xb, beta, strata):
+                return median_of(curves(xb, beta, strata))
         elif kind in ("score", "score_curves"):
-            def fn(xb, beta):
-                s = curves(xb, beta)
+            def fn(xb, beta, strata):
+                s = curves(xb, beta, strata)
                 out = (torch.exp(eta_of(xb, beta)), median_of(s))
                 return out + ((s,) if kind == "score_curves" else ())
         else:
@@ -163,17 +165,26 @@ class ScoringEngine:
         return fn
 
     def _run(self, kind: str, x, strata):
-        if strata is not None and np.any(np.asarray(strata) != 0):
-            raise ValueError("this model has one stratum; stratum indices "
-                             "must all be 0")
         with trace.span("engine.score", kind=kind) as sp_span:
             xp, b, bucket = self._pad(self._gather(x))
+            sp = np.zeros(bucket, np.int32)
+            if strata is not None:
+                s = np.asarray(strata, np.int32)
+                if s.size and (s.min() < 0 or s.max() >= self.model.n_strata):
+                    # the kernel reads h0[strata] unchecked on the device
+                    raise ValueError(
+                        f"stratum indices must be in [0, {self.model.n_strata})"
+                        f", got range [{s.min()}, {s.max()}]")
+                sp[:b] = s
             self.calls += 1
             _M_CALLS.inc(kind=kind)
             _M_BUCKET.observe(bucket)
             sp_span.set(b=b, bucket=bucket)
             xb = torch.as_tensor(xp, device=self.device)
-            out = self._fn(kind, bucket)(xb, self._beta)
+            # a single-stratum model reads no strata: nothing to move
+            st = (torch.as_tensor(sp, device=self.device)
+                  if self.model.n_strata > 1 else None)
+            out = self._fn(kind, bucket)(xb, self._beta, st)
             if isinstance(out, tuple):
                 return tuple(o.cpu().numpy()[:b] for o in out)
             return out.cpu().numpy()[:b]
@@ -186,7 +197,8 @@ class ScoringEngine:
 
     def survival_curves(self, x: np.ndarray,
                         strata: Optional[np.ndarray] = None) -> np.ndarray:
-        """(b, g) S(t|x) on the model grid."""
+        """(b, g) S(t|x) on the model grid. ``strata`` are baseline row
+        indices (positions in model.strata_labels), default stratum 0."""
         return self._run("curves", x, strata)
 
     def median_survival(self, x: np.ndarray,
@@ -201,11 +213,13 @@ class ScoringEngine:
         return self._run("score_curves" if with_curves else "score",
                          x, strata)
 
-    def prewarm(self, batch_sizes=(1, 64), kinds=("score",)) -> int:
+    def prewarm(self, batch_sizes=(1, 64), kinds=("score",),
+                strata: bool = False) -> int:
         """Build (and run once, on zeros) the buckets a service will hit,
         so the first live request never pays the build. ``batch_sizes`` are
-        rounded up to their pow-2 buckets; duplicates build once. Returns
-        the number of fresh builds."""
+        rounded up to their pow-2 buckets; duplicates build once. With
+        ``strata`` a stratified model runs with stratum indices, as its
+        requests will. Returns the number of fresh builds."""
         before = self.compiles
         seen = set()
         for b in batch_sizes:
@@ -214,8 +228,10 @@ class ScoringEngine:
                 continue
             seen.add(bucket)
             x = np.zeros((bucket, self.feature_dim), np.float32)
+            s = (np.zeros(bucket, np.int32)
+                 if strata and self.model.n_strata > 1 else None)
             for kind in kinds:
-                self._run(kind, x, None)
+                self._run(kind, x, s)
         return self.compiles - before
 
     def cache_info(self) -> dict:

@@ -9,7 +9,10 @@ plain versions on the card.
 
 Tolerances: float32 against the Pallas kernels, 2e-5 (g, h) and 2e-4 (c3,
 a third moment) as in tests/test_kernels.py, 1e-4 for the Lipschitz
-constants, 1e-5 for the curve panel; float64 against core/cox.py, 1e-8.
+constants, 1e-5 for the curve panel, 1e-3 for the suffix scan and 1e-4 for
+cox_batch (bfloat16 3e-2 and 5e-2: one bfloat16 rounding of outputs or
+products), 1e-6 for the stratified curves; float64 against core/cox.py,
+1e-8.
 """
 import numpy as np
 import pytest
@@ -21,15 +24,22 @@ import jax.numpy as jnp  # noqa: E402
 from repro.core import cox as jcox  # noqa: E402
 from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
+from repro.kernels.cox_batch import cox_batch as j_cox_batch  # noqa: E402
 from repro.kernels.cox_coord import cox_coord as j_cox_coord  # noqa: E402
+from repro.kernels.revcumsum import revcumsum as j_revcumsum  # noqa: E402
 from repro.kernels.survival_curves import \
     survival_curves as j_survival_curves  # noqa: E402
+from repro.kernels.survival_curves import \
+    survival_curves_stratified as j_curves_strat  # noqa: E402
 from repro_torch.core import cox  # noqa: E402
 from repro_torch.data.synthetic import make_tied_survival  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
+from repro_torch.kernels.cox_batch import cox_batch  # noqa: E402
 from repro_torch.kernels.cox_coord import cox_coord  # noqa: E402
 from repro_torch.kernels.lipschitz import lipschitz  # noqa: E402
-from repro_torch.kernels.survival_curves import survival_curves  # noqa: E402
+from repro_torch.kernels.revcumsum import revcumsum  # noqa: E402
+from repro_torch.kernels.survival_curves import (  # noqa: E402
+    survival_curves, survival_curves_stratified)
 
 
 def _t(a):
@@ -160,6 +170,135 @@ def test_survival_curves_extreme_eta_saturates():
 
 
 # ---------------------------------------------------------------------------
+# revcumsum
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("m", [1, 3, 128])
+@pytest.mark.parametrize("n", [1, 7, 128, 513, 1000, 4096])
+def test_revcumsum_matches_pallas(n, m, dtype):
+    x32 = np.random.default_rng(n + m).standard_normal((n, m)).astype(
+        np.float32)
+    jx = jnp.asarray(x32, dtype=getattr(jnp, dtype))
+    want = j_revcumsum(jx, block_n=256, interpret=True)
+    tx = torch.from_numpy(x32).to(getattr(torch, dtype))
+    got = ops.revcumsum(tx)
+    assert got.dtype == tx.dtype and got.shape == (n, m)
+    tol = 1e-3 if dtype == "float32" else 3e-2
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), rtol=tol,
+                               atol=tol)
+
+
+def test_revcumsum_vector_matches_jax_ops():
+    x = np.random.default_rng(9).standard_normal(777).astype(np.float32)
+    want = jops.revcumsum(jnp.asarray(x))
+    got = revcumsum(_t(x))
+    assert got.shape == (777,)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    # float64 stays float64 (the reference's oracle rounds to float32)
+    want64 = np.cumsum(x.astype(np.float64)[::-1])[::-1]
+    got64 = revcumsum(_t(x.astype(np.float64)))
+    assert got64.dtype == torch.float64
+    np.testing.assert_allclose(got64.numpy(), want64, rtol=1e-12, atol=1e-12)
+
+
+# ---------------------------------------------------------------------------
+# cox_batch
+# ---------------------------------------------------------------------------
+
+def _batch_vectors(n, seed):
+    """(w, r, wa, delta, inv_s0) as ops.cox_batch_grad_hess forms them."""
+    rng = np.random.default_rng(seed)
+    eta = (rng.standard_normal(n) * 0.5).astype(np.float32)
+    d = (rng.uniform(size=n) < 0.7).astype(np.float32)
+    w = np.exp(eta - eta.max())
+    inv_s0 = (1.0 / np.cumsum(w[::-1])[::-1]).astype(np.float32)
+    wa = (w * np.cumsum(d * inv_s0)).astype(np.float32)
+    return eta, [w.astype(np.float32), (wa - d).astype(np.float32), wa, d,
+                 inv_s0]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n,p", [(64, 8), (500, 33), (1024, 256), (2050, 70)])
+def test_cox_batch_matches_pallas(n, p, dtype):
+    x32 = np.random.default_rng(n + p).standard_normal((n, p)).astype(
+        np.float32)
+    _, vecs = _batch_vectors(n, seed=n * p)
+    want = j_cox_batch(jnp.asarray(x32, dtype=getattr(jnp, dtype)),
+                       *(jnp.asarray(v) for v in vecs), block_n=256,
+                       block_p=128, interpret=True)
+    got = cox_batch(torch.from_numpy(x32).to(getattr(torch, dtype)),
+                    *(_t(v) for v in vecs))
+    tol = 1e-4 if dtype == "float32" else 5e-2
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32 and g.shape == (p,)
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=tol,
+                                   atol=tol * 10)
+
+
+def test_ops_cox_batch_grad_hess_matches_jax_and_core():
+    x, t, delta = _tie_free(400, 12, seed=0)
+    beta = (np.random.default_rng(1).standard_normal(12) * 0.3).astype(
+        np.float32)
+    with jax.enable_x64(False):
+        jd = jcox.prepare(x, t, delta)
+        want = jops.cox_batch_grad_hess(jd.x @ jnp.asarray(beta), jd.x,
+                                        jd.delta)
+    td = cox.prepare(x, t, delta, device="cpu")
+    eta = td.x @ torch.from_numpy(beta)
+    got = ops.cox_batch_grad_hess(eta, td.x, td.delta)
+    core = cox.grad_hess_all(td, eta)
+    for g, w, c in zip(got, want, core):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=2e-4,
+                                   atol=2e-4)
+        np.testing.assert_allclose(g, c, rtol=2e-4, atol=2e-4)
+    # float64 stays float64 through the plain route
+    td64 = cox.prepare(x.astype(np.float64), t, delta, device="cpu")
+    eta64 = td64.x @ torch.from_numpy(beta.astype(np.float64))
+    for g, c in zip(ops.cox_batch_grad_hess(eta64, td64.x, td64.delta),
+                    cox.grad_hess_all(td64, eta64)):
+        assert g.dtype == torch.float64
+        np.testing.assert_allclose(g.numpy(), c.numpy(), rtol=1e-9,
+                                   atol=1e-9)
+
+
+# ---------------------------------------------------------------------------
+# survival_curves_stratified
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("b,s,g", [(1, 1, 16), (37, 5, 200), (64, 3, 128),
+                                   (130, 8, 257)])
+def test_survival_curves_stratified_matches_pallas(b, s, g):
+    rng = np.random.default_rng(b + s + g)
+    eta = rng.standard_normal(b).astype(np.float32)
+    h0 = np.cumsum(rng.uniform(0, 0.05, (s, g)), axis=1).astype(np.float32)
+    strata = rng.integers(0, s, b).astype(np.int32)
+    want = j_curves_strat(jnp.asarray(eta), jnp.asarray(h0),
+                          jnp.asarray(strata), block_g=128, interpret=True)
+    got = ops.survival_curves_stratified(_t(eta), _t(h0), _t(strata))
+    assert got.shape == (b, g) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6,
+                               atol=1e-6)
+
+
+def test_survival_curves_stratified_clips_extreme_eta():
+    eta = torch.tensor([100.0, -100.0, 50.0, -50.0])
+    h0 = torch.stack([torch.linspace(0.0, 2.0, 32),
+                      torch.linspace(0.0, 1.0, 32)])
+    strata = torch.tensor([0, 1, 1, 0], dtype=torch.int32)
+    got = survival_curves_stratified(eta, h0, strata)
+    want = j_curves_strat(jnp.asarray(eta.numpy()), jnp.asarray(h0.numpy()),
+                          jnp.asarray(strata.numpy()), interpret=True)
+    assert torch.all(torch.isfinite(got))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6,
+                               atol=1e-6)
+    # one stratum equals the unstratified panel
+    one = survival_curves_stratified(eta, h0[:1], torch.zeros(4, dtype=torch.int32))
+    np.testing.assert_array_equal(one, survival_curves(eta, h0[0]))
+
+
+# ---------------------------------------------------------------------------
 # The six oracles mirror the JAX package's kernels/ref.py
 # ---------------------------------------------------------------------------
 
@@ -213,8 +352,13 @@ def test_cpu_tensors_take_plain_path_and_count_no_launch():
     ops.cox_coord_grad_hess(eta, td.xT[0], td.delta, td.risk_start)
     ops.lipschitz_constants(td.x, td.delta, td.risk_start)
     ops.survival_curves(eta[:5], torch.linspace(0, 1, 8))
-    assert ops.launch_counts() == {"cox_coord": 0, "lipschitz": 0,
-                                   "survival_curves": 0}
+    ops.revcumsum(td.x)
+    ops.cox_batch_grad_hess(eta, td.x, td.delta)
+    ops.survival_curves_stratified(eta[:5], torch.ones(2, 8),
+                                   torch.zeros(5, dtype=torch.int32))
+    assert ops.launch_counts() == dict.fromkeys(
+        ("cox_coord", "lipschitz", "survival_curves", "revcumsum",
+         "cox_batch", "survival_curves_stratified"), 0)
     assert counter.value(kernel="cox_coord", route="plain") == before + 1
 
 
@@ -249,6 +393,37 @@ def test_wrappers_validate_arguments(case):
             cox_coord(eta[:0], x[:0], d[:0], rs[:0])
 
 
+@pytest.mark.parametrize("case", ["dtype", "shape", "empty"])
+def test_second_slice_wrappers_validate_arguments(case):
+    n, p = 16, 4
+    x, v = torch.ones(n, p), torch.ones(n)
+    strata = torch.zeros(3, dtype=torch.int32)
+    if case == "dtype":
+        with pytest.raises(TypeError):
+            revcumsum(torch.ones(n, dtype=torch.int32))
+        with pytest.raises(TypeError):
+            cox_batch(x, v, v, v, v, torch.ones(n, dtype=torch.int64))
+        with pytest.raises(TypeError):
+            survival_curves_stratified(torch.zeros(3), torch.ones(2, 5),
+                                       strata.float())
+    elif case == "shape":
+        with pytest.raises(ValueError):
+            revcumsum(torch.ones(2, 3, 4))
+        with pytest.raises(ValueError):
+            cox_batch(x, v, v, v[:-1], v, v)
+        with pytest.raises(ValueError):
+            survival_curves_stratified(torch.zeros(3), torch.ones(5),
+                                       strata)
+        with pytest.raises(ValueError):
+            survival_curves_stratified(torch.zeros(4), torch.ones(2, 5),
+                                       strata)
+    else:
+        with pytest.raises(ValueError):
+            revcumsum(torch.ones(0, 3))
+        with pytest.raises(ValueError):
+            cox_batch(x[:, :0], v, v, v, v, v)
+
+
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     """A failed build raises; nothing falls back."""
     monkeypatch.setattr(_build, "_LIB", None)
@@ -263,7 +438,14 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
 def test_build_digest_covers_every_source():
     names = {p.name for p in _build.CSRC.glob("*.cu*")}
     assert {"cox_coord.cu", "lipschitz.cu", "survival_curves.cu",
+            "revcumsum.cu", "cox_batch.cu", "survival_curves_stratified.cu",
             "common.cuh"} <= names
-    assert set(_build._SIGNATURES) >= {"repro_cox_coord", "repro_lipschitz",
-                                       "repro_survival_curves"}
+    assert set(_build._SIGNATURES) >= {
+        "repro_cox_coord", "repro_lipschitz", "repro_survival_curves",
+        "repro_revcumsum", "repro_cox_batch",
+        "repro_survival_curves_stratified"}
+    # every C entry point is defined in some source
+    text = "".join(p.read_text() for p in _build.CSRC.glob("*.cu"))
+    for name in _build._SIGNATURES:
+        assert f" {name}(" in text, name
     assert _build._digest() == _build._digest()

@@ -319,15 +319,89 @@ def test_engine_counts_curve_dispatches():
 
 
 def test_engine_unported_options_raise():
+    """shard= (ROADMAP A7) still raises; stratified models now score."""
     x, t, delta, beta = _problem(n=120)
     model = _fit(x, t, delta, beta)
     with pytest.raises(NotImplementedError, match="A7"):
         ScoringEngine(model, shard=2, device="cpu")
     strata = np.random.default_rng(0).integers(0, 2, size=len(t))
-    with pytest.raises(NotImplementedError, match="B6"):
-        _engine(_fit(x, t, delta, beta, strata=strata))
-    with pytest.raises(ValueError, match="one stratum"):
-        _engine(model).survival_curves(x[:3], strata=np.array([0, 1, 0]))
+    strat = _fit(x, t, delta, beta, strata=strata)
+    q, sq = x[:3], np.array([0, 1, 0])
+    curves = _engine(strat).survival_curves(q, strata=sq)
+    eta = np.clip(q @ beta, -30, 30)
+    np.testing.assert_allclose(
+        curves, np.exp(-strat.base_cumhaz[sq] * np.exp(eta)[:, None]),
+        rtol=1e-5, atol=1e-6)
+    with pytest.raises(ValueError, match="stratum indices"):
+        _engine(model).survival_curves(q, strata=sq)
     np.testing.assert_array_equal(
-        _engine(model).survival_curves(x[:3], strata=np.zeros(3, np.int32)),
-        _engine(model).survival_curves(x[:3]))
+        _engine(model).survival_curves(q, strata=np.zeros(3, np.int32)),
+        _engine(model).survival_curves(q))
+
+
+# ---------------------------------------------------------------------------
+# Stratified scoring against the JAX engine
+# ---------------------------------------------------------------------------
+
+def _stratified_models(n=300, p=10, n_strata=4):
+    x, t, delta, beta = _problem(n=n, p=p, seed=3)
+    strata = np.random.default_rng(5).integers(0, n_strata, size=n)
+    jm = j_fit(x, t, delta, beta, strata=strata)
+    return x, jm, convert.model_from_reference(_arrays(jm), jm.ties)
+
+
+@pytest.mark.parametrize("b", [1, 13, 64])
+def test_stratified_engine_matches_jax(b):
+    x, jm, tm = _stratified_models()
+    assert tm.n_strata == 4
+    rng = np.random.default_rng(b)
+    q = rng.standard_normal((b, 10)).astype(np.float32)
+    sq = rng.integers(0, 4, b)
+    jeng, eng = JEngine(jm), _engine(tm)
+    want = jeng.score(q, sq, with_curves=True)
+    got = eng.score(q, sq, with_curves=True)
+    np.testing.assert_allclose(got[0], want[0], rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(got[2], want[2], rtol=1e-5, atol=1e-6)
+    np.testing.assert_array_equal(got[1], want[1])
+    np.testing.assert_allclose(eng.survival_curves(q, sq),
+                               jeng.survival_curves(q, sq), rtol=1e-5,
+                               atol=1e-6)
+    np.testing.assert_array_equal(eng.median_survival(q, sq),
+                                  jeng.median_survival(q, sq))
+    # no strata means stratum 0 for every request, as in the reference
+    np.testing.assert_allclose(eng.survival_curves(q),
+                               jeng.survival_curves(q), rtol=1e-5,
+                               atol=1e-6)
+
+
+def test_stratified_engine_dispatches_the_stratified_kernel():
+    x, _, tm = _stratified_models()
+    eng = _engine(tm)
+    counter = ops._M_DISPATCH
+    strat0 = counter.value(kernel="survival_curves_stratified", route="plain")
+    single0 = counter.value(kernel="survival_curves", route="plain")
+    eng.score(x[:5], np.arange(5) % 4, with_curves=True)
+    assert counter.value(kernel="survival_curves_stratified",
+                         route="plain") == strat0 + 1
+    assert counter.value(kernel="survival_curves", route="plain") == single0
+
+
+@pytest.mark.parametrize("bad", [[0, 4, 1], [-1, 0, 0]])
+def test_stratified_engine_rejects_out_of_range_strata(bad):
+    x, jm, tm = _stratified_models()
+    with pytest.raises(ValueError, match=r"stratum indices must be in \[0, 4\)"):
+        _engine(tm).score(x[:3], np.array(bad))
+    with pytest.raises(ValueError, match=r"stratum indices must be in \[0, 4\)"):
+        JEngine(jm).score(x[:3], np.array(bad))
+
+
+def test_stratified_engine_prewarm():
+    x, _, tm = _stratified_models()
+    eng = _engine(tm)
+    assert eng.prewarm(batch_sizes=(1, 3, 4, 100), kinds=("score",),
+                       strata=True) == 3
+    assert eng.prewarm(batch_sizes=(1, 3, 4, 100), kinds=("score",),
+                       strata=True) == 0
+    assert eng.prewarm(batch_sizes=(5,), kinds=("score_curves",)) == 1
+    info = eng.cache_info()
+    assert info["compiles"] == info["entries"] == 4
