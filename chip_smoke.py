@@ -9,14 +9,20 @@ Phases, each printed as it runs; any failed check raises:
   1. device: the card's name and power limit (nvidia-smi), then the build
      of every CUDA kernel from ``src/repro_torch/kernels/csrc``;
   2. kernels against their plain PyTorch versions on the card, each
-     maximum error beside its tolerance: cox_coord and lipschitz on
-     tie-free data, on small tie groups and with one group of a quarter of
-     the rows; the curve panels with eta = +/-50 in the batch; revcumsum
-     and cox_batch at the streaming fit's shapes and at ragged ones, in
-     float32 and bfloat16;
+     maximum error beside its tolerance: cox_coord at n = 1, a tile - 1, a
+     tile, a tile + 1, 262,144 and 1,048,577, on tie-free data, small tie
+     groups, groups wider than a tile and one group of a quarter of the
+     rows, with eta ~ 0.8 N(0, 1) and ~ U(-80, 80); lipschitz on the first,
+     second and fourth of those tie layouts; the curve panels with
+     eta = +/-50 in the batch; revcumsum at (65,536, m) for m = 1, 8, 31,
+     32, 33, 1,000, 1,001 and at ragged shapes, and cox_batch at the
+     streaming fit's shapes and at ragged ones, in float32 and bfloat16.
+     cox_coord and revcumsum must give the same bits twice, and one call of
+     each must issue its kernels (KERNELS_PER_CALL) and no other device
+     operation;
   3. fit: Appendix-C data at n = 262,144, p = 1,000 (rho 0.9, k 15, seed 0),
      ``fit_cd`` with cd_quad for 10 sweeps and cd_cubic for 3; the
-     objective must not rise; cox_coord must launch p x sweeps times and
+     objective must not rise; cox_coord must be called p x sweeps times and
      lipschitz once per fit;
   4. artifact: ``fit_survival_model``, then save / load with checksums;
   5. serving: ``ScoringEngine.score(with_curves=True)`` on 1, 64 and 4,096
@@ -94,8 +100,9 @@ MONO_RTOL = 1e-6     # allowed objective rise per sweep, float32 round-off
 ARTIFACT_RTOL = 1e-4  # float32 baseline, card vs CPU cumulative sums
 REVCUMSUM_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
                      # |kernel - plain| / suffix(|x|) per element: float32
-                     # sums in two orders over up to 256 + 256 terms
-                     # (kernel) and a tree scan (plain), worst case ~3e-5;
+                     # sums in two orders, the kernel's a run of up to 32
+                     # rows, up to 31 runs and a chain of segment carries,
+                     # the plain version's a tree scan, worst case ~3e-5;
                      # bfloat16 adds one output rounding each, 2^-7
 COX_BATCH_TOL = 2e-5  # |kernel - plain| / sum_i |term_i| per column: the
                      # kernel sums in float64, the plain version in float32
@@ -195,17 +202,21 @@ def kernel_ms(fn, reps: int, rounds: int = 5):
 # ---------------------------------------------------------------------------
 
 TIES = ("none", "small", "quarter")
+# cox_coord also takes groups of ~1.5 kernel tiles, each crossing tile edges
+COORD_TIES = TIES + ("wide",)
 
 
 def _risk_start(n: int, ties: str, gen):
     """Sorted tie-group starts: each sample's own index ("none"), groups of
-    ~64 ("small"), or groups of ~64 and the last quarter of the rows in one
-    group, as administrative censoring at one date gives ("quarter")."""
+    ~64 ("small"), groups of ~1,536 ("wide"), or groups of ~64 and the last
+    quarter of the rows in one group, as administrative censoring at one
+    date gives ("quarter")."""
     import torch
 
     if ties == "none":
         return torch.arange(n, dtype=torch.int32, device="cuda")
-    t = torch.sort(torch.randint(0, max(n // 64, 1), (n,), device="cuda",
+    size = 1536 if ties == "wide" else 64
+    t = torch.sort(torch.randint(0, max(n // size, 1), (n,), device="cuda",
                                  generator=gen)).values
     if ties == "quarter":
         t[n - max(n // 4, 1):] = t[-1] + 1
@@ -229,13 +240,39 @@ def _coord_scales(eta, x, d, rs, order):
     return [float(sg), float(sh), float(sc) if order == 3 else 1.0]
 
 
-def check_kernels(coord_ns=(1, 1000, N), lip_ps=(1, 37, P), lip_n=N,
+def device_ops(fn) -> list:
+    """Names of the device operations (kernels, copies, memsets) one call
+    of ``fn`` issues, by torch.profiler, after a warm-up call."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
+def check_launch_shape(name: str, fn, want: int, prefix: str) -> None:
+    """One call of ``fn`` issues ``want`` kernels whose names hold
+    ``prefix`` and no other device operation."""
+    names = device_ops(fn)
+    log(f"  {name}: one call issues {len(names)} device operations {names} "
+        f"(expected {want}, all {prefix}*)")
+    check(len(names) == want and all(prefix in n for n in names),
+          f"{name}: a call issued {names}")
+
+
+def check_kernels(coord_ns=None, lip_ps=(1, 37, P), lip_n=N,
                   curve_bs=(1, 37, 4096), curve_gs=(128, 257)) -> dict:
     """Every kernel against its plain version on the card; returns the
     largest absolute error of each."""
     import torch
 
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import cox_coord as coord_mod
     from repro_torch.kernels.cox_coord import cox_coord
     from repro_torch.kernels.lipschitz import lipschitz
     from repro_torch.kernels.survival_curves import survival_curves
@@ -246,24 +283,53 @@ def check_kernels(coord_ns=(1, 1000, N), lip_ps=(1, 37, P), lip_n=N,
     def randn(*shape):
         return torch.randn(*shape, device="cuda", generator=gen)
 
+    tile = coord_mod.TILE
+    if coord_ns is None:
+        coord_ns = (1, tile - 1, tile, tile + 1, N, 1_048_577)
     for n in coord_ns:
-        for ties in TIES:
-            eta, x = randn(n) * 0.8, randn(n)
+        for ties in COORD_TIES:
+            x = randn(n)
             d = (torch.rand(n, device="cuda", generator=gen) < 0.7).float()
             rs = _risk_start(n, ties, gen)
-            for order in (2, 3):
-                got = cox_coord(eta, x, d, rs, order=order)
-                want = torch.stack(ref.cox_coord_ref(eta, x, d, rs, order))
-                torch.cuda.synchronize()
-                err = (got - want).abs().double().cpu().tolist()
-                scales = _coord_scales(eta, x, d, rs, order)
-                worst = max(e / s for e, s in zip(err, scales))
-                log(f"  cox_coord n={n} ties={ties} order={order}: "
-                    f"max |err| {max(err):.3e}, max |err|/sum|terms| "
-                    f"{worst:.3e} (tol {COORD_TOL:.0e})")
-                check(worst <= COORD_TOL and torch.isfinite(got).all(),
-                      f"cox_coord n={n} ties={ties} order={order}")
-                errs["cox_coord"] = max(errs["cox_coord"], max(err))
+            groups = ops.group_events(d, rs)
+            for spread in ("0.8 N(0, 1)", "U(-80, 80)"):
+                eta = (randn(n) * 0.8 if spread.startswith("0.8")
+                       else (torch.rand(n, device="cuda", generator=gen)
+                             * 160.0 - 80.0))
+                for order in (2, 3):
+                    got = cox_coord(eta, x, d, rs, order=order,
+                                    group_events=groups).clone()
+                    again = cox_coord(eta, x, d, rs, order=order,
+                                      group_events=groups).clone()
+                    want = torch.stack(ref.cox_coord_ref(eta, x, d, rs,
+                                                         order))
+                    torch.cuda.synchronize()
+                    err = (got - want).abs().double().cpu().tolist()
+                    scales = _coord_scales(eta, x, d, rs, order)
+                    worst = max(e / s for e, s in zip(err, scales))
+                    same = torch.equal(got, again)
+                    log(f"  cox_coord n={n} ties={ties} eta~{spread} "
+                        f"order={order}: max |err| {max(err):.3e}, max "
+                        f"|err|/sum|terms| {worst:.3e} (tol {COORD_TOL:.0e})"
+                        f"; same bits twice: {same}")
+                    check(worst <= COORD_TOL and bool(torch.isfinite(got).all())
+                          and same,
+                          f"cox_coord n={n} ties={ties} eta~{spread} "
+                          f"order={order}")
+                    errs["cox_coord"] = max(errs["cox_coord"], max(err))
+            # without group_events the wrapper makes them itself
+            got = cox_coord(eta, x, d, rs, order=3).clone()
+            check(torch.equal(got, cox_coord(eta, x, d, rs, order=3,
+                                             group_events=groups)),
+                  f"cox_coord n={n} ties={ties}: made group_events differ")
+    eta, x = randn(N) * 0.8, randn(N)
+    d = (torch.rand(N, device="cuda", generator=gen) < 0.7).float()
+    rs = _risk_start(N, "quarter", gen)
+    groups = ops.group_events(d, rs)
+    check_launch_shape(
+        f"cox_coord n={N}",
+        lambda: cox_coord(eta, x, d, rs, group_events=groups),
+        coord_mod.KERNELS_PER_CALL, "coord_")
 
     for p in lip_ps:
         for ties in TIES:
@@ -272,8 +338,12 @@ def check_kernels(coord_ns=(1, 1000, N), lip_ps=(1, 37, P), lip_n=N,
             rs = _risk_start(lip_n, ties, gen)
             got = lipschitz(x, d, rs)
             want = ref.lipschitz_ref(x, d, rs)
+            # given the fit's shared group counts, the same bits
+            shared = lipschitz(x, d, rs, group_events=ops.group_events(d, rs))
             del x
             torch.cuda.synchronize()
+            check(all(torch.equal(a, b) for a, b in zip(got, shared)),
+                  f"lipschitz p={p} ties={ties}: given group_events differ")
             err = max(float((g - w).abs().max()) for g, w in zip(got, want))
             rel = max(float(((g - w).abs() / w.abs()).max())
                       for g, w in zip(got, want))
@@ -333,8 +403,13 @@ def _batch_scales(x, w, r, wa, delta, inv_s0):
     return sg, sh
 
 
-def check_stream_kernels(scan_shapes=((65_536, 1_000), (65_536,), (1, 1),
-                                      (777, 3), (4_097, 1_000)),
+SCAN_SHAPES = tuple((STREAM_CHUNK, m) for m in (1, 8, 31, 32, 33, 1_000,
+                                               1_001)) + (
+    (STREAM_CHUNK,), (1, 1), (777, 3), (4_097, 1_000), (4_097, 256),
+    (4_097, 255), (4_097, 33), (70_001, 8))
+
+
+def check_stream_kernels(scan_shapes=SCAN_SHAPES,
                          batch_shapes=((65_536, 1_000), (1, 1), (2_050, 70)),
                          strat_shapes=((1, 1, 16), (37, 5, 257),
                                        (4_096, STRATA, 128))) -> dict:
@@ -344,6 +419,7 @@ def check_stream_kernels(scan_shapes=((65_536, 1_000), (65_536,), (1, 1),
     import torch
 
     from repro_torch.kernels import ref
+    from repro_torch.kernels import revcumsum as revcumsum_mod
     from repro_torch.kernels.cox_batch import cox_batch
     from repro_torch.kernels.revcumsum import revcumsum
     from repro_torch.kernels.survival_curves import \
@@ -362,6 +438,7 @@ def check_stream_kernels(scan_shapes=((65_536, 1_000), (65_536,), (1, 1),
         for dtype in ("float32", "bfloat16"):
             x = x32.to(getattr(torch, dtype))
             got = revcumsum(x)
+            same = torch.equal(got, revcumsum(x))
             want = ref.revcumsum_ref(x)
             torch.cuda.synchronize()
             err = (got.double() - want.double()).abs()
@@ -371,13 +448,24 @@ def check_stream_kernels(scan_shapes=((65_536, 1_000), (65_536,), (1, 1),
                   f"revcumsum {shape} {dtype}: output")
             log(f"  revcumsum {shape} {dtype}: max |err| {float(err.max()):.3e},"
                 f" max |err|/suffix|x| {rel:.3e} (tol "
-                f"{REVCUMSUM_TOL[dtype]:.0e})")
-            check(rel <= REVCUMSUM_TOL[dtype], f"revcumsum {shape} {dtype}")
+                f"{REVCUMSUM_TOL[dtype]:.0e}); same bits twice: {same}")
+            check(rel <= REVCUMSUM_TOL[dtype] and same,
+                  f"revcumsum {shape} {dtype}")
             into = errs if dtype == "float32" else errs_bf16
             into["revcumsum"] = max(into["revcumsum"], float(err.max()))
             del got, want, err, x
         del x32
         torch.cuda.empty_cache()
+    panel = randn(STREAM_CHUNK, P)
+    vector = randn(STREAM_CHUNK)
+    per_call = revcumsum_mod.KERNELS_PER_CALL
+    check_launch_shape(f"revcumsum {tuple(panel.shape)}",
+                       lambda: revcumsum(panel), per_call["panel"],
+                       "rcs_panel")
+    check_launch_shape(f"revcumsum {tuple(vector.shape)}",
+                       lambda: revcumsum(vector), per_call["vector"],
+                       "rcs_vec")
+    del panel, vector
 
     for n, p in batch_shapes:
         x32 = randn(n, p)
@@ -515,6 +603,9 @@ def main_path(x, t, delta) -> dict:
     lam1, lam2 = 0.1 * float(grad0.abs().max()), 1.0
     log(f"  n={data.n} p={data.p} events={int(data.delta.sum())} "
         f"tied samples={n_ties} lam1={lam1:.4f} lam2={lam2}")
+    from repro_torch.kernels import cox_coord as coord_mod
+    log(f"  a cox_coord call is {coord_mod.KERNELS_PER_CALL} kernel launches;"
+        f" the launch counts below count calls")
     quad, quad_sweep_s = run_fit(data, lam1, lam2, "cd_quad", QUAD_SWEEPS)
     cubic, cubic_sweep_s = run_fit(data, lam1, lam2, "cd_cubic",
                                    CUBIC_SWEEPS)
@@ -833,13 +924,13 @@ def _bound(nbytes: float, ops: float):
                                        else "operations")
 
 
-def wrapper_overhead_us(data, reps: int = 2000) -> float:
+def wrapper_overhead_us(data, groups, reps: int = 2000) -> float:
     """Host microseconds a cox_coord call spends in its wrapper's argument
     checks, library lookup and dispatch counter, without launching."""
     from repro_torch.kernels import _build, ops
 
     args = {"eta": data.delta, "x": data.xT[0], "delta": data.delta,
-            "risk_start": data.risk_start}
+            "risk_start": data.risk_start, "group_events": groups}
     shapes = dict.fromkeys(args, (data.n,))
     dtypes = {name: t.dtype for name, t in args.items()}
     t0 = time.perf_counter()
@@ -854,7 +945,7 @@ def timings(state) -> dict:
     import torch
 
     from repro_torch.core import solvers
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import ops, ref
     from repro_torch.kernels.cox_coord import cox_coord
     from repro_torch.kernels.lipschitz import lipschitz
     from repro_torch.kernels.survival_curves import survival_curves
@@ -863,27 +954,35 @@ def timings(state) -> dict:
     n, p = data.n, data.p
     eta = data.x @ torch.as_tensor(state["model"].beta, device="cuda")
     rows = data.xT
+    groups = ops.group_events(data.delta, data.risk_start)
     out = {}
 
     # cox_coord, as CD calls it: a new feature row each call (cold in L2)
     out["cox_coord"] = (
         kernel_ms(lambda i: cox_coord(eta, rows[i % p], data.delta,
-                                      data.risk_start), reps=200),
+                                      data.risk_start, group_events=groups),
+                  reps=200),
         kernel_ms(lambda i: ref.cox_coord_ref(eta, rows[i % p], data.delta,
                                               data.risk_start), reps=50),
         _bound(16.0 * n + 12, 20.0 * n))
+    # lipschitz as the fit calls it, given the group counts made once per
+    # fit: the kernel reads x and those counts
     out["lipschitz"] = (
-        kernel_ms(lambda i: lipschitz(data.x, data.delta, data.risk_start),
-                  reps=3),
+        kernel_ms(lambda i: lipschitz(data.x, data.delta, data.risk_start,
+                                      group_events=groups), reps=3),
         kernel_ms(lambda i: ref.lipschitz_ref(data.x, data.delta,
                                               data.risk_start),
                   reps=1, rounds=3),
-        _bound(4.0 * n * p + 8.0 * n + 8.0 * p, 8.0 * n * p))
+        _bound(4.0 * n * p + 4.0 * n + 8.0 * p, 8.0 * n * p))
     quarter = _risk_start(n, "quarter",
                           torch.Generator(device="cuda").manual_seed(2))
+    q_groups = ops.group_events(data.delta, quarter)
+    q_ms = events_ms(lambda i: lipschitz(data.x, data.delta, quarter,
+                                         q_groups), 3)
+    d_ms = events_ms(lambda i: ops.group_events(data.delta, quarter), 20)
     log(f"  lipschitz with the last quarter of the rows in one tie group: "
-        f"{events_ms(lambda i: lipschitz(data.x, data.delta, quarter), 3):.4f}"
-        f" ms a call by CUDA events")
+        f"{q_ms:.4f} ms a call by CUDA events; making the fit's group "
+        f"counts (ops.group_events), once per fit: {d_ms:.4f} ms")
     h0 = engine._h0[0]
     b, g = BATCHES[-1], h0.shape[0]
     e = torch.randn(b, device="cuda")
@@ -892,7 +991,7 @@ def timings(state) -> dict:
         kernel_ms(lambda i: ref.survival_curves_ref(e, h0), reps=200),
         _bound(4.0 * (b + g + b * g), 3.0 * b * g))
     log(f"  cox_coord wrapper checks and counters: "
-        f"{wrapper_overhead_us(data):.2f} us of host time a call")
+        f"{wrapper_overhead_us(data, groups):.2f} us of host time a call")
     for method in ("cd_quad", "cd_cubic"):
         busy, wall = device_ms(lambda i: solvers.fit_cd(
             data, lam1=state["lam1"], lam2=state["lam2"], n_iters=1,
@@ -944,6 +1043,15 @@ def stream_timings(strat_h0) -> tuple:
     log(f"  revcumsum on the (chunk_rows,) = ({n},) hazard vector: median "
         f"{vec_ms[0] * 1e3:.2f} us by CUDA events, device time "
         f"{vec_ms[1] * 1e3:.2f} us; bound {vec_bound * 1e3:.3f} us")
+    x16 = x.to(torch.bfloat16)
+    bf16_ms = kernel_ms(lambda i: revcumsum(x16), reps=50)
+    copy_ms = kernel_ms(lambda i: x.clone(), reps=50)
+    log(f"  revcumsum on the panel in bfloat16: median "
+        f"{bf16_ms[0] * 1e3:.2f} us, device time {bf16_ms[1] * 1e3:.2f} us; "
+        f"bound {_bound(4.0 * n * p, 1.0 * n * p)[0] * 1e3:.2f} us. A device "
+        f"copy of the float32 panel (x.clone(), the bytes the scan must "
+        f"move): device time {copy_ms[1] * 1e3:.2f} us")
+    del x16
     out["cox_batch"] = (
         kernel_ms(lambda i: cox_batch(x, *vecs), reps=50),
         kernel_ms(lambda i: ref.cox_batch_ref(x, *vecs), reps=20),

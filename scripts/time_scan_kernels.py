@@ -1,0 +1,165 @@
+#!/usr/bin/env python3
+"""Time the cox_coord and revcumsum kernels of one checkout on a card.
+
+    python3 scripts/time_scan_kernels.py [--src DIR] [--label NAME]
+
+Imports ``repro_torch`` from DIR (default: this checkout's ``src``), builds
+its kernels, and prints one JSON line: for each kernel the device time a
+call (torch.profiler's sum of the call's device operations, and that time
+by operation) and the median time a call by CUDA events, at the main
+path's shapes:
+
+  - cox_coord at n = 262,144 with ties in groups of ~64, a new feature row
+    each call out of 64 (64 MB, more than the L2 holds), order 2; given its
+    per-fit group counts where the wrapper takes them;
+  - revcumsum on the streaming fit's (65,536, 1,000) panel, float32 and
+    bfloat16, on (65,536, m) float32 panels of m = 32 (the narrowest that
+    takes the panel layout), 256 and 512, and on the (65,536,) hazard
+    vector; beside them a device
+    copy of the float32 panel (``clone``), which moves the bytes the scan
+    must move;
+
+and the wall time (host clock, ended by a synchronise) of the paths they
+serve, cut in depth: a ``cd_quad`` sweep of ``fit_cd`` at n = 262,144,
+p = 1,000 (x ~ N(0, 1) made on the card, times with ties in groups of ~64;
+the median of 3 one-sweep fits after a warm-up fit, each fit's Lipschitz
+pass included), and one global-mode ``fit_stream`` epoch over 16 chunks
+of (65,536, 1,000) (the median of 3 after a warm-up).
+
+To compare two versions on one card, run it on both in one command, in
+turns (parent, change, change, parent), the parent unpacked with
+``git archive`` into a directory that .gitignore lists.
+"""
+from __future__ import annotations
+
+import argparse
+import inspect
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def by_kernel_us(fn, reps: int) -> dict:
+    """Device microseconds a call of ``fn`` spends in each of its device
+    operations, by torch.profiler, after a warm-up call."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn(0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(reps):
+            fn(i)
+        torch.cuda.synchronize()
+    out: dict = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            key = (e.name.replace("void (anonymous namespace)::", "")
+                   .split("(")[0])
+            out[key] = out.get(key, 0.0) + e.device_time_total / reps
+    return out
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--src", default=str(ROOT / "src"))
+    ap.add_argument("--label", default="this checkout")
+    args = ap.parse_args()
+    sys.path.insert(0, args.src)
+    sys.path.insert(1, str(ROOT))
+    import torch
+
+    if not torch.cuda.is_available():
+        print("time_scan_kernels.py: CUDA is not available", file=sys.stderr)
+        return 2
+    from chip_smoke import device_ms, events_ms
+    from repro_torch.kernels import _build, ops
+    from repro_torch.kernels.cox_coord import cox_coord
+    from repro_torch.kernels.revcumsum import revcumsum
+
+    _build.library()
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    n, rows = 262_144, 64
+    eta = torch.randn(n, device="cuda", generator=gen) * 0.8
+    xs = torch.randn(rows, n, device="cuda", generator=gen)
+    d = (torch.rand(n, device="cuda", generator=gen) < 0.7).float()
+    t = torch.sort(torch.randint(0, n // 64, (n,), device="cuda",
+                                 generator=gen)).values
+    rs = torch.searchsorted(t, t, side="left").to(torch.int32)
+    kw = {}
+    if "group_events" in inspect.signature(cox_coord).parameters:
+        kw["group_events"] = ops.group_events(d, rs)
+
+    def coord(i):
+        return cox_coord(eta, xs[i % rows], d, rs, **kw)
+
+    panel = torch.randn(65_536, 1_000, device="cuda", generator=gen) * 0.5
+    panel16 = panel.to(torch.bfloat16)
+    vector = torch.rand(65_536, device="cuda", generator=gen)
+    narrow = panel[:, :32].contiguous()
+    mid = panel[:, :256].contiguous()
+    half = panel[:, :512].contiguous()
+    cases = {"cox_coord n=262144": (coord, 400),
+             "revcumsum (65536, 1000) float32": (lambda i: revcumsum(panel),
+                                                 50),
+             "copy (65536, 1000) float32": (lambda i: panel.clone(), 50),
+             "revcumsum (65536, 32) float32": (lambda i: revcumsum(narrow),
+                                               200),
+             "revcumsum (65536, 256) float32": (lambda i: revcumsum(mid),
+                                                100),
+             "revcumsum (65536, 512) float32": (lambda i: revcumsum(half),
+                                                100),
+             "revcumsum (65536, 1000) bfloat16": (
+                 lambda i: revcumsum(panel16), 50),
+             "revcumsum (65536,)": (lambda i: revcumsum(vector), 400)}
+    out = {"label": args.label, "torch": torch.__version__,
+           "card": subprocess.run(
+               ["nvidia-smi", "--query-gpu=name,power.limit",
+                "--format=csv,noheader"], capture_output=True, text=True,
+               timeout=60).stdout.strip()}
+    for name, (fn, reps) in cases.items():
+        dev_ms, _ = device_ms(fn, reps)
+        out[name] = {"device_us": dev_ms * 1e3,
+                     "events_us": events_ms(fn, reps) * 1e3,
+                     "by_kernel_us": by_kernel_us(fn, reps)}
+    del xs, panel, panel16, narrow, mid, half
+    torch.cuda.empty_cache()
+
+    from repro_torch.core import cox, solvers
+    from repro_torch.core.streaming import Chunk
+
+    def wall_s(fn, reps=3):
+        fn()
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        return statistics.median(times)
+
+    data = cox.prepare(torch.randn(n, 1_000, device="cuda", generator=gen),
+                       t.float(), d, device="cuda")
+    out["cd_quad sweep n=262144 p=1000 s"] = wall_s(
+        lambda: solvers.fit_cd(data, lam1=1.0, lam2=1.0, n_iters=1))
+    del data
+    torch.cuda.empty_cache()
+    chunks = [Chunk(x=torch.randn(65_536, 1_000, device="cuda",
+                                  generator=gen) * 0.5,
+                    delta=(torch.rand(65_536, device="cuda", generator=gen)
+                           < 0.5).float()) for _ in range(16)]
+    out["global epoch 16 x (65536, 1000) s"] = wall_s(
+        lambda: solvers.fit_stream(chunks, lam2=0.01, n_epochs=1))
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -42,14 +42,16 @@ def _objective(data: cox.CoxData, eta: Tensor, beta: Tensor, lam1,
 
 def _cd_sweep(data: cox.CoxData, eta: Tensor, beta: Tensor, l2c: Tensor,
               l3c: Tensor, lam1, lam2, cubic: bool,
-              use_kernel: bool) -> None:
+              groups: Optional[Tensor]) -> None:
     """One full sweep over all p coordinates, in order; updates eta and
-    beta in place."""
+    beta in place. ``groups`` (the fit's ``ops.group_events``)
+    routes each coordinate through the kernel; None takes the plain
+    path."""
     for l in range(data.p):
         xl = data.xT[l]
-        if use_kernel:
+        if groups is not None:
             g, h = ops.cox_coord_grad_hess(eta, xl, data.delta,
-                                           data.risk_start)
+                                           data.risk_start, groups)
         else:
             g, h, _ = cox.coord_derivs(data, eta, xl, order=2)
         bl = beta[l]
@@ -64,8 +66,12 @@ def _cd_sweep(data: cox.CoxData, eta: Tensor, beta: Tensor, l2c: Tensor,
 
 
 def _start(data: cox.CoxData, beta0: Optional[Tensor], method: str,
-           use_kernel: bool, device) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
-    """Validate the call; return (eta, beta, L2, L3) at the start point."""
+           use_kernel: bool, device
+           ) -> Tuple[Tensor, Tensor, Tensor, Tensor, Optional[Tensor]]:
+    """Validate the call; return (eta, beta, L2, L3) at the start point and,
+    when ``use_kernel``, the tie groups' event counts that the Lipschitz
+    pass and every ``cox_coord`` call of the fit take (None on the plain
+    path)."""
     dev = _device.resolve(device)
     if data.device.type != dev.type:
         raise ValueError(f"data lies on {data.device}, the fit was asked to "
@@ -79,11 +85,13 @@ def _start(data: cox.CoxData, beta0: Optional[Tensor], method: str,
                                device=data.device).clone()
     eta = data.x @ beta
     if use_kernel:
+        groups = ops.group_events(data.delta, data.risk_start)
         l2c, l3c = ops.lipschitz_constants(data.x, data.delta,
-                                           data.risk_start)
+                                           data.risk_start, groups)
     else:
         l2c, l3c = cox.lipschitz_constants(data)
-    return eta, beta, l2c, l3c
+        groups = None
+    return eta, beta, l2c, l3c, groups
 
 
 def fit_cd(data: cox.CoxData, lam1: float = 0.0, lam2: float = 0.0,
@@ -96,11 +104,12 @@ def fit_cd(data: cox.CoxData, lam1: float = 0.0, lam2: float = 0.0,
     ``"cpu"``. ``use_kernel`` routes the per-coordinate derivatives and
     the Lipschitz constants through the kernels (their plain versions on
     the CPU)."""
-    eta, beta, l2c, l3c = _start(data, beta0, method, use_kernel, device)
+    eta, beta, l2c, l3c, groups = _start(data, beta0, method, use_kernel,
+                                         device)
     cubic = method == "cd_cubic"
     objs = []
     for _ in range(n_iters):
-        _cd_sweep(data, eta, beta, l2c, l3c, lam1, lam2, cubic, use_kernel)
+        _cd_sweep(data, eta, beta, l2c, l3c, lam1, lam2, cubic, groups)
         objs.append(_objective(data, eta, beta, lam1, lam2))
     objective = (torch.stack(objs) if objs
                  else torch.zeros(0, dtype=beta.dtype, device=beta.device))
@@ -115,14 +124,15 @@ def fit_cd_tol(data: cox.CoxData, lam1: float = 0.0, lam2: float = 0.0,
     sweep falls below ``tol`` (sound, since the surrogate majorization
     makes the objective monotone). Reads the objective on the host once a
     sweep; ``objective`` holds the last value only."""
-    eta, beta, l2c, l3c = _start(data, beta0, method, use_kernel, device)
+    eta, beta, l2c, l3c, groups = _start(data, beta0, method, use_kernel,
+                                         device)
     cubic = method == "cd_cubic"
     cur = _objective(data, eta, beta, lam1, lam2)
     prev = float(cur) + 2.0 * tol + 1.0
     it = 0
     while it < max_iters and prev - float(cur) > tol:
         prev = float(cur)
-        _cd_sweep(data, eta, beta, l2c, l3c, lam1, lam2, cubic, use_kernel)
+        _cd_sweep(data, eta, beta, l2c, l3c, lam1, lam2, cubic, groups)
         cur = _objective(data, eta, beta, lam1, lam2)
         it += 1
     return FitResult(beta=beta, objective=cur.reshape(1), n_iters=it)

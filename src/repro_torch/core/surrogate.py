@@ -138,9 +138,12 @@ def cubic_l1_prox_paper(a, b, c, d, lam1) -> Tensor:
     out = torch.where(cond1, r1,
                       torch.where(cond2, r2, torch.where(cond3, r3, -d)))
     a0 = torch.abs(a) - lam1
+    # den is 0 only when b == 0 and c * a0 underflows (a0 subnormal): the
+    # exact step is then below the float grid's resolution, so take 0.
+    den = b + torch.sqrt(b * b + 2.0 * c * a0)
     zero_step = torch.where(
-        a0 <= 0.0, 0.0,
-        -torch.sign(a) * 2.0 * a0 / (b + torch.sqrt(b * b + 2.0 * c * a0)))
+        (a0 <= 0.0) | (den <= 0.0), 0.0,
+        -torch.sign(a) * 2.0 * a0 / den)
     return torch.where(d == 0.0, zero_step, out)
 
 

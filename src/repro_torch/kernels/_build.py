@@ -37,12 +37,12 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "repro_error_string": (ctypes.c_char_p, [_I]),
     "repro_cox_coord_scratch_floats": (ctypes.c_longlong, [_I, _I]),
-    "repro_cox_coord": (_I, [_P, _P, _P, _P, _P, _I, _I, _P, _P, _P]),
+    "repro_cox_coord": (_I, [_P, _P, _P, _P, _I, _I, _P, _P, _P]),
     "repro_lipschitz_scratch_bytes": (ctypes.c_longlong, [_I, _I]),
-    "repro_lipschitz": (_I, [_P, _P, _P, _I, _I, _P, _P, _P, _P]),
+    "repro_lipschitz": (_I, [_P, _P, _I, _I, _P, _P, _P, _P]),
     "repro_survival_curves": (_I, [_P, _P, _I, _I, _P, _P]),
-    "repro_revcumsum_scratch_floats": (ctypes.c_longlong, [_I, _I]),
-    "repro_revcumsum": (_I, [_P, _I, _I, _I, _P, _P, _P]),
+    "repro_revcumsum_scratch_bytes": (ctypes.c_longlong, [_I, _I, _I]),
+    "repro_revcumsum": (_I, [_P, _I, _I, _I, _P, ctypes.c_uint, _P, _P]),
     "repro_cox_batch_scratch_bytes": (ctypes.c_longlong, [_I, _I]),
     "repro_cox_batch": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P,
                              _P]),
@@ -51,6 +51,8 @@ _SIGNATURES = {
 
 _LOCK = threading.Lock()
 _LIB: ctypes.CDLL | None = None
+# (owner, device, stream) -> a buffer that a wrapper keeps (scratch())
+_SCRATCH: dict = {}
 # seconds the build took in this process (0.0 when an existing library was
 # loaded), and the compiler's -Xptxas -v report
 build_seconds = 0.0
@@ -151,6 +153,21 @@ def check(err: int, what: str) -> None:
 def stream() -> int:
     """Handle of PyTorch's current CUDA stream, for a launcher."""
     return torch.cuda.current_stream().cuda_stream
+
+
+def scratch(owner: str, numel: int, dtype: torch.dtype,
+            device: torch.device, stream_handle: int) -> torch.Tensor:
+    """A wrapper's own buffer of at least ``numel`` elements on ``device``,
+    kept for the stream ``stream_handle`` (``stream()``) and handed back by
+    every later call there, so a call allocates nothing. Zeroed when first
+    made or grown; what the kernels leave in it between calls is theirs to
+    keep consistent."""
+    key = (owner, device, stream_handle)
+    buf = _SCRATCH.get(key)
+    if buf is None or buf.numel() < numel:
+        buf = torch.zeros(numel, dtype=dtype, device=device)
+        _SCRATCH[key] = buf
+    return buf
 
 
 def require(what: str, tensors: dict, shapes: dict, cuda_dtypes: dict) -> bool:

@@ -105,4 +105,64 @@ __device__ __forceinline__ T block_sum(T v) {
   return tot;
 }
 
+// Sums of N values over the block in one exchange, valid in every thread.
+// Each is summed in a fixed order. All threads of the block must call.
+template <int THREADS, int N>
+__device__ __forceinline__ void block_sum_all(float (&v)[N]) {
+  static_assert(THREADS % 32 == 0 && THREADS <= 1024, "whole warps only");
+  constexpr int kWarps = THREADS / 32;
+  __shared__ float warp_sums[N][kWarps];
+#pragma unroll
+  for (int q = 0; q < N; ++q) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      v[q] += __shfl_down_sync(kFullMask, v[q], off);
+  }
+  if ((threadIdx.x & 31) == 0) {
+#pragma unroll
+    for (int q = 0; q < N; ++q) warp_sums[q][threadIdx.x >> 5] = v[q];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int q = 0; q < N; ++q) {
+    float t = 0.f;
+    for (int w = 0; w < kWarps; ++w) t += warp_sums[q][w];
+    v[q] = t;
+  }
+  __syncthreads();  // warp_sums is reused by the next call
+}
+
+// For each of N values: the sum over the threads whose index is greater
+// than the caller's (exclusive suffix), in one exchange. All threads call.
+template <int THREADS, int N>
+__device__ __forceinline__ void block_exclusive_suffix_all(
+    const float (&v)[N], float (&after)[N]) {
+  static_assert(THREADS % 32 == 0 && THREADS <= 1024, "whole warps only");
+  constexpr int kWarps = THREADS / 32;
+  __shared__ float warp_sums[N][kWarps];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  float s[N];
+#pragma unroll
+  for (int q = 0; q < N; ++q) {
+    s[q] = v[q];  // becomes the sum over lanes >= lane
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const float y = __shfl_down_sync(kFullMask, s[q], off);
+      if (lane + off < 32) s[q] += y;
+    }
+    float excl = __shfl_down_sync(kFullMask, s[q], 1);
+    after[q] = lane == 31 ? 0.f : excl;
+    if (lane == 0) warp_sums[q][warp] = s[q];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int q = 0; q < N; ++q) {
+    float a = 0.f;
+    for (int w = kWarps - 1; w > warp; --w) a += warp_sums[q][w];
+    after[q] += a;
+  }
+  __syncthreads();  // warp_sums is reused by the next call
+}
+
 }  // namespace repro

@@ -13,87 +13,35 @@
 // columns and every warp load is one 128-byte line. One thread walking a
 // whole column would leave p threads on the card (1,000 at the main path's
 // width, 32 warps for 132 SMs) with little memory traffic in flight; the
-// rows are cut into chunks of 256 instead, one thread per (chunk, column):
-//   1. D[a] = sum of delta over the tie group that starts at a (0 off group
-//      starts), so the sum over i becomes a sum over group starts and chunks
-//      need not know each other's groups. A group can hold a large share of
-//      n (administrative censoring at one date), so no thread walks a group:
-//      lip_delta_suffix and lip_block_offsets form the suffix sum SD of
-//      delta in double (block-local, then over blocks, as in cox_coord.cu),
-//      and lip_group_events has the last sample i of each group write
-//      D[a] = SD[a] - SD[i + 1] at its start a;
-//   2. lip_chunk_extrema: max/min of each (chunk, column);
-//   3. lip_chunk_carry: per column, the exclusive suffix of those extrema
+// rows are cut into chunks of 256 instead, one thread per (chunk, column).
+// The kernel takes D (n,), D[a] = the sum of delta over the tie group that
+// starts at a (0 off group starts; kernels/ref.py::group_events, made once
+// per fit and shared with cox_coord), so the sum over i becomes a sum over
+// group starts and chunks need not know each other's groups: a group that
+// holds a large share of n (administrative censoring at one date) costs no
+// walk.
+//   1. lip_chunk_extrema: max/min of each (chunk, column);
+//   2. lip_chunk_carry: per column, the exclusive suffix of those extrema
 //      over chunks (what lies to the right of each chunk), in place;
-//   4. lip_walk: each (chunk, column) walks its rows from last to first,
+//   3. lip_walk: each (chunk, column) walks its rows from last to first,
 //      extending the carried extrema, and adds D[a] range^2 and D[a] range^3
 //      at each group start a, accumulating in double;
-//   5. lip_finish: per column, the chunk partials in a fixed order.
+//   4. lip_finish: per column, the chunk partials in a fixed order.
 //
 // What bounds it on an H100: bytes. The function must read X once (4 n p
 // bytes; 1.05 GB at n = 262,144, p = 1,000) for ~8 flops an element. This
-// design reads X twice (steps 2 and 4), so it can reach half the bound at
+// design reads X twice (steps 1 and 3), so it can reach half the bound at
 // best. It runs once per fit.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
-
-#include "common.cuh"
 
 namespace {
 
 constexpr int kChunk = 256;   // rows per chunk
 constexpr int kColThreads = 32;
 constexpr int kChunkThreads = 8;
-constexpr int kScanThreads = 1024;  // samples per block of the delta scan
 constexpr double kInv6Sqrt3 = 0.09622504486493763;  // 1 / (6 sqrt(3))
-
-// sd[i] <- sum of delta over i's block from i on; totals[b] <- block b's sum.
-__global__ void __launch_bounds__(kScanThreads)
-lip_delta_suffix(const float* __restrict__ delta, int n,
-                 double* __restrict__ sd, double* __restrict__ totals) {
-  const int i = blockIdx.x * kScanThreads + threadIdx.x;
-  const double v = i < n ? static_cast<double>(delta[i]) : 0.0;
-  double total;
-  const double after = repro::block_exclusive_suffix<kScanThreads>(v, &total);
-  if (i < n) sd[i] = v + after;
-  if (threadIdx.x == 0) totals[blockIdx.x] = total;
-}
-
-// In place: totals[b] <- sum over b' > b of totals[b'].
-__global__ void __launch_bounds__(kScanThreads)
-lip_block_offsets(double* __restrict__ totals, int nb) {
-  double carry = 0.0;
-  for (int start = ((nb - 1) / kScanThreads) * kScanThreads; start >= 0;
-       start -= kScanThreads) {
-    const int b = start + threadIdx.x;
-    const double v = b < nb ? totals[b] : 0.0;
-    double chunk_total;
-    const double after =
-        repro::block_exclusive_suffix<kScanThreads>(v, &chunk_total);
-    if (b < nb) totals[b] = after + carry;
-    carry += chunk_total;
-  }
-}
-
-// dsum[a] <- delta summed over the tie group starting at a; 0 off starts.
-// Each entry has one writer: a group's last sample writes its start, every
-// other sample that is not a start writes its own index.
-__global__ void lip_group_events(const int* __restrict__ risk_start,
-                                 const double* __restrict__ sd,
-                                 const double* __restrict__ offsets, int n,
-                                 float* __restrict__ dsum) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const int a = risk_start[i];
-  if (a != i) dsum[i] = 0.f;
-  if (i + 1 == n || risk_start[i + 1] != a) {
-    const double from_a = sd[a] + offsets[a / kScanThreads];
-    const double after = i + 1 < n
-        ? sd[i + 1] + offsets[(i + 1) / kScanThreads] : 0.0;
-    dsum[a] = static_cast<float>(from_a - after);
-  }
-}
 
 __global__ void lip_chunk_extrema(const float* __restrict__ x, int n, int p,
                                   int nc, float* __restrict__ cmax,
@@ -174,24 +122,17 @@ __global__ void lip_finish(const double* __restrict__ part2,
 struct Layout {
   double* part2;
   double* part3;
-  double* sd;
-  double* offsets;
   float* cmax;
   float* cmin;
-  float* dsum;
 };
 
 Layout layout(void* scratch, int n, int p) {
   const size_t nc = (n + kChunk - 1) / kChunk;
-  const size_t nb = (n + kScanThreads - 1) / kScanThreads;
   Layout l;
   l.part2 = static_cast<double*>(scratch);
   l.part3 = l.part2 + nc * p;
-  l.sd = l.part3 + nc * p;
-  l.offsets = l.sd + n;
-  l.cmax = reinterpret_cast<float*>(l.offsets + nb);
+  l.cmax = reinterpret_cast<float*>(l.part3 + nc * p);
   l.cmin = l.cmax + nc * p;
-  l.dsum = l.cmin + nc * p;
   return l;
 }
 
@@ -202,37 +143,26 @@ extern "C" {
 // Bytes of scratch that repro_lipschitz needs for an (n, p) panel.
 long long repro_lipschitz_scratch_bytes(int n, int p) {
   const long long nc = (n + kChunk - 1) / kChunk;
-  const long long nb = (n + kScanThreads - 1) / kScanThreads;
-  return nc * p * (2 * sizeof(double) + 2 * sizeof(float)) +
-         (static_cast<long long>(n) + nb) * sizeof(double) +
-         static_cast<long long>(n) * sizeof(float);
+  return nc * p * (2 * sizeof(double) + 2 * sizeof(float));
 }
 
-// l2, l3 (p,) from a time-sorted row-major x (n, p), delta and risk_start.
-int repro_lipschitz(const float* x, const float* delta, const int* risk_start,
-                    int n, int p, void* scratch, float* l2, float* l3,
-                    void* stream) {
+// l2, l3 (p,) from a time-sorted row-major x (n, p) and the tie groups'
+// event counts dsum (n,) at their starts.
+int repro_lipschitz(const float* x, const float* dsum, int n, int p,
+                    void* scratch, float* l2, float* l3, void* stream) {
   if (n <= 0 || p <= 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int nc = (n + kChunk - 1) / kChunk;
-  const int nb = (n + kScanThreads - 1) / kScanThreads;
   const Layout s = layout(scratch, n, p);
   const dim3 block(kColThreads, kChunkThreads);
   const dim3 grid((p + kColThreads - 1) / kColThreads,
                   (nc + kChunkThreads - 1) / kChunkThreads);
   cudaError_t err;
-  lip_delta_suffix<<<nb, kScanThreads, 0, st>>>(delta, n, s.sd, s.offsets);
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  lip_block_offsets<<<1, kScanThreads, 0, st>>>(s.offsets, nb);
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  lip_group_events<<<(n + 255) / 256, 256, 0, st>>>(risk_start, s.sd,
-                                                    s.offsets, n, s.dsum);
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
   lip_chunk_extrema<<<grid, block, 0, st>>>(x, n, p, nc, s.cmax, s.cmin);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
   lip_chunk_carry<<<(p + 255) / 256, 256, 0, st>>>(s.cmax, s.cmin, p, nc);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  lip_walk<<<grid, block, 0, st>>>(x, s.dsum, n, p, nc, s.cmax, s.cmin,
+  lip_walk<<<grid, block, 0, st>>>(x, dsum, n, p, nc, s.cmax, s.cmin,
                                    s.part2, s.part3);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
   lip_finish<<<(p + 255) / 256, 256, 0, st>>>(s.part2, s.part3, p, nc, l2, l3);

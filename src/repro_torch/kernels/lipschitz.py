@@ -8,7 +8,7 @@ header says what bounds it on the card and how the design answers that.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -20,31 +20,43 @@ Tensor = torch.Tensor
 launches = 0
 
 
-def lipschitz(x: Tensor, delta: Tensor,
-              risk_start: Tensor) -> Tuple[Tensor, Tensor]:
+def lipschitz(x: Tensor, delta: Tensor, risk_start: Tensor,
+              group_events: Optional[Tensor] = None) -> Tuple[Tensor, Tensor]:
     """(L2 (p,), L3 (p,)) of a time-sorted row-major (n, p) panel.
 
-    On a card x and delta are float32 and risk_start int32; on the CPU the
-    plain version runs, in float64 when given float64."""
+    On a card x and delta are float32 and risk_start int32; the kernel
+    reads the tie groups' event counts ``group_events``
+    (``ref.group_events(delta, risk_start)``, which a fit makes once and
+    shares with ``cox_coord``), made by the call when not given. On the CPU
+    the plain version runs, in float64 when given float64: the risk-start
+    form, or the group-start form when ``group_events`` is given."""
     global launches
     if x.dim() != 2 or x.shape[0] < 1 or x.shape[1] < 1:
         raise ValueError(f"lipschitz: x must be a non-empty (n, p) panel, "
                          f"got shape {tuple(x.shape)}")
     n, p = x.shape
-    on_card = _build.require(
-        "lipschitz", {"x": x, "delta": delta, "risk_start": risk_start},
-        {"x": (n, p), "delta": (n,), "risk_start": (n,)},
-        {"x": torch.float32, "delta": torch.float32,
-         "risk_start": torch.int32})
-    if not on_card:
-        return ref.lipschitz_ref(x, delta, risk_start)
+    args = {"x": x, "delta": delta, "risk_start": risk_start}
+    dtypes = {"x": torch.float32, "delta": torch.float32,
+              "risk_start": torch.int32}
+    if group_events is not None:
+        args["group_events"] = group_events
+        dtypes["group_events"] = torch.float32
+    shapes = dict.fromkeys(args, (n,))
+    shapes["x"] = (n, p)
+    if not _build.require("lipschitz", args, shapes, dtypes):
+        if group_events is None:
+            return ref.lipschitz_ref(x, delta, risk_start)
+        # the group-start form: sum_s D[s] f(range(s)), range at s itself
+        return ref.lipschitz_ref(x, group_events)
+    if group_events is None:
+        group_events = ref.group_events(delta, risk_start)
     lib = _build.library()
     scratch = torch.empty(lib.repro_lipschitz_scratch_bytes(n, p),
                           dtype=torch.uint8, device=x.device)
     l2 = torch.empty(p, dtype=torch.float32, device=x.device)
     l3 = torch.empty(p, dtype=torch.float32, device=x.device)
     _build.check(lib.repro_lipschitz(
-        x.data_ptr(), delta.data_ptr(), risk_start.data_ptr(), n, p,
+        x.data_ptr(), group_events.data_ptr(), n, p,
         scratch.data_ptr(), l2.data_ptr(), l3.data_ptr(), _build.stream()),
         "lipschitz")
     launches += 1

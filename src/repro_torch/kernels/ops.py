@@ -5,13 +5,15 @@ kernel, a tensor on the CPU takes the plain version (``ref.py``). Every
 dispatch counts in ``kernel_dispatch_total``, labelled with the kernel and
 the route taken (``cuda`` or ``plain``), so a fleet that silently ran the
 plain version would show it in the metrics. The wrappers' own ``launches``
-counts (``launch_counts()``) count kernel launches only.
+counts (``launch_counts()``) count the calls that launched their kernels
+and nothing else; a call may be several launches (``cox_coord`` and
+``revcumsum`` state theirs in ``KERNELS_PER_CALL``).
 
 The port has no block autotuner: each kernel picks its own launch shape.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -45,7 +47,8 @@ def _count(kernel: str, t: Tensor) -> None:
 
 
 def launch_counts() -> Dict[str, int]:
-    """Kernel launches per wrapper since the last reset."""
+    """Calls that launched their kernels, per wrapper, since the last
+    reset."""
     return {name: getattr(mod, attr)
             for name, (mod, attr) in _WRAPPERS.items()}
 
@@ -61,27 +64,43 @@ def revcumsum(x: Tensor) -> Tensor:
     return _revcumsum.revcumsum(x)
 
 
+def group_events(delta: Tensor, risk_start: Tensor) -> Tensor:
+    """Per-tie-group event counts at each group's start, for
+    ``cox_coord_grad_hess``, ``cox_coord_all`` and ``lipschitz_constants``;
+    make it once per fit."""
+    return ref.group_events(delta, risk_start)
+
+
 def cox_coord_grad_hess(eta: Tensor, x: Tensor, delta: Tensor,
-                        risk_start: Tensor) -> Tuple[Tensor, Tensor]:
-    """Fused per-coordinate (g, h), exact on tied times."""
+                        risk_start: Tensor,
+                        group_events: Optional[Tensor] = None
+                        ) -> Tuple[Tensor, Tensor]:
+    """Fused per-coordinate (g, h), exact on tied times. ``group_events``
+    (``group_events``) is made by the call when not given."""
     _count("cox_coord", eta)
-    out = _cox_coord.cox_coord(eta, x, delta, risk_start, order=2)
+    out = _cox_coord.cox_coord(eta, x, delta, risk_start, order=2,
+                               group_events=group_events)
     return out[0], out[1]
 
 
 def cox_coord_all(eta: Tensor, x: Tensor, delta: Tensor,
-                  risk_start: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
+                  risk_start: Tensor, group_events: Optional[Tensor] = None
+                  ) -> Tuple[Tensor, Tensor, Tensor]:
     """Fused per-coordinate (g, h, c3) including the third partial."""
     _count("cox_coord", eta)
-    out = _cox_coord.cox_coord(eta, x, delta, risk_start, order=3)
+    out = _cox_coord.cox_coord(eta, x, delta, risk_start, order=3,
+                               group_events=group_events)
     return out[0], out[1], out[2]
 
 
-def lipschitz_constants(x: Tensor, delta: Tensor,
-                        risk_start: Tensor) -> Tuple[Tensor, Tensor]:
-    """(L2, L3) Theorem-3.4 constants, exact on tied times."""
+def lipschitz_constants(x: Tensor, delta: Tensor, risk_start: Tensor,
+                        group_events: Optional[Tensor] = None
+                        ) -> Tuple[Tensor, Tensor]:
+    """(L2, L3) Theorem-3.4 constants, exact on tied times; takes the same
+    optional ``group_events`` as ``cox_coord_grad_hess``."""
     _count("lipschitz", x)
-    return _lipschitz.lipschitz(x, delta, risk_start)
+    return _lipschitz.lipschitz(x, delta, risk_start,
+                                group_events=group_events)
 
 
 def cox_batch_grad_hess(eta: Tensor, x: Tensor,

@@ -34,6 +34,26 @@ def _at(v: Tensor, risk_start: Optional[Tensor]) -> Tensor:
     return v if risk_start is None else v[risk_start.long()]
 
 
+def group_events(delta: Tensor, risk_start: Tensor) -> Tensor:
+    """D (n,): D[s] is the summed delta of the tie group that starts at s,
+    0 where no group starts, in delta's working type (float32, or float64
+    when given float64). The ``cox_coord`` and ``lipschitz`` kernels take
+    it in place of ``risk_start``; a fit makes it once for both.
+
+    ``risk_start`` is each sample's first index of its tie group, so it is
+    nondecreasing; D needs no scatter: a group ends where the next sample
+    starts another, and its sum is a difference of one float64 cumulative
+    sum, the same bits on every run and device."""
+    rs = risk_start.long()
+    n = rs.shape[0]
+    cs = torch.cumsum(delta.double(), 0)
+    before = cs - delta.double()                   # sum of delta over k < i
+    end = torch.searchsorted(rs, rs, right=True) - 1  # last index of group
+    starts = rs == torch.arange(n, device=rs.device)
+    d = torch.where(starts, cs[end] - before, torch.zeros_like(cs))
+    return d.to(_work(delta).dtype)
+
+
 def revcumsum_ref(x: Tensor) -> Tensor:
     return _suffix(_work(x)).to(x.dtype)
 
@@ -56,6 +76,28 @@ def cox_coord_ref(eta: Tensor, x: Tensor, delta: Tensor,
         return g, h, torch.zeros_like(g)
     m3 = _at(_suffix(w * x * x * x), risk_start) / s0
     c3 = torch.sum(delta * (m3 + 2.0 * m1 ** 3 - 3.0 * m2 * m1))
+    return g, h, c3
+
+
+def cox_coord_groups_ref(eta: Tensor, x: Tensor, delta: Tensor,
+                         group_events: Tensor, order: int = 2
+                         ) -> Tuple[Tensor, Tensor, Tensor]:
+    """``cox_coord_ref`` in the group-start form the kernel computes:
+    sum_i delta_i f(m(risk_start_i)) = sum_s D[s] f(m(s)), where D[s]
+    (``group_events``) is the event count of the tie group starting at s,
+    so every term is read at its own index."""
+    eta, x, delta = _work(eta), _work(x), _work(delta)
+    d = _work(group_events)
+    w = torch.exp(eta - torch.max(eta))
+    s0 = torch.clamp(_suffix(w), min=1e-30)
+    m1 = _suffix(w * x) / s0
+    m2 = _suffix(w * x * x) / s0
+    g = torch.sum(d * m1) - torch.sum(delta * x)
+    h = torch.sum(d * (m2 - m1 * m1))
+    if order < 3:
+        return g, h, torch.zeros_like(g)
+    m3 = _suffix(w * x * x * x) / s0
+    c3 = torch.sum(d * (m3 + 2.0 * m1 ** 3 - 3.0 * m2 * m1))
     return g, h, c3
 
 

@@ -13,9 +13,14 @@ from . import _build, ref
 
 Tensor = torch.Tensor
 _DTYPES = (torch.float32, torch.bfloat16)
+PANEL_MIN_COLS = 32
 
-# calls that launched the CUDA kernel (the plain version counts nothing)
+# calls that launched the CUDA kernels (the plain version counts nothing)
 launches = 0
+# kernel launches in one such call, by layout
+KERNELS_PER_CALL = {"panel": 1, "vector": 2}
+# the last epoch handed to the kernel (the panel's carries carry it)
+_epoch = 0
 
 
 def revcumsum(x: Tensor) -> Tensor:
@@ -24,7 +29,7 @@ def revcumsum(x: Tensor) -> Tensor:
     On a card x is float32 or bfloat16; the sums run in float32 and the
     result takes x's type. On the CPU the plain version runs, in float64
     when given float64."""
-    global launches
+    global launches, _epoch
     if x.dim() not in (1, 2) or 0 in x.shape:
         raise ValueError(f"revcumsum: x must be a non-empty (n,) or (n, m) "
                          f"tensor, got shape {tuple(x.shape)}")
@@ -35,12 +40,17 @@ def revcumsum(x: Tensor) -> Tensor:
         return ref.revcumsum_ref(x)
     n = x.shape[0]
     m = x.shape[1] if x.dim() == 2 else 1
+    bf16 = int(x.dtype == torch.bfloat16)
     lib = _build.library()
-    scratch = torch.empty(lib.repro_revcumsum_scratch_floats(n, m),
-                          dtype=torch.float32, device=x.device)
+    st = _build.stream()
+    scratch = _build.scratch(
+        "revcumsum", lib.repro_revcumsum_scratch_bytes(n, m, bf16),
+        torch.uint8, x.device, st)
+    # nonzero, and never one a carry word of this scratch already holds
+    _epoch = _epoch % 0x7FFFFFFF + 1
     out = torch.empty_like(x)
     _build.check(lib.repro_revcumsum(
-        x.data_ptr(), n, m, int(x.dtype == torch.bfloat16),
-        scratch.data_ptr(), out.data_ptr(), _build.stream()), "revcumsum")
+        x.data_ptr(), n, m, bf16, scratch.data_ptr(), _epoch, out.data_ptr(),
+        st), "revcumsum")
     launches += 1
     return out

@@ -113,6 +113,67 @@ def test_ops_cox_coord_entry_points():
         np.testing.assert_allclose(a, b, rtol=2e-5, atol=2e-5)
 
 
+def _tied_layout(layout, seed):
+    """make_tied_survival data (n=300, p=5) in float64, with its times as
+    drawn ("grid"), with the latest quarter of the rows in one tie group
+    ("quarter"), or with every row in one group ("all")."""
+    x, t, delta = make_tied_survival(n=300, p=5, n_times=12, seed=seed)
+    if layout == "quarter":
+        t[np.argsort(t, kind="stable")[-75:]] = t.max() + 1.0
+    elif layout == "all":
+        t[:] = 1.0
+    return x.astype(np.float64), t, delta
+
+
+@pytest.mark.parametrize("layout", ["grid", "quarter", "all"])
+@pytest.mark.parametrize("order", [2, 3])
+def test_cox_coord_group_form_matches_breslow(layout, order):
+    """The group-start form (the plain path given group_events) against
+    JAX cox.coord_derivs on tied data."""
+    x, t, delta = _tied_layout(layout, seed=3)
+    beta = np.random.default_rng(4).standard_normal(5) * 0.4
+    with jax.enable_x64(True):
+        jd = jcox.prepare(x, t, delta)
+        eta = jd.x @ jnp.asarray(beta)
+        want = [np.asarray(jcox.coord_derivs(jd, eta, jd.x[:, l],
+                                             order=order))
+                for l in range(5)]
+        eta_np = np.asarray(eta)
+    td = cox.prepare(x, t, delta, device="cpu")
+    groups = ops.group_events(td.delta, td.risk_start)
+    starts = td.risk_start.long() == torch.arange(300)
+    assert groups.dtype == torch.float64
+    assert torch.all(groups[~starts] == 0)
+    assert float(groups.sum()) == float(td.delta.sum())
+    if layout == "all":
+        assert float(groups[0]) == float(td.delta.sum())
+    for l in range(5):
+        got = cox_coord(_t(eta_np), td.xT[l], td.delta, td.risk_start,
+                        order=order, group_events=groups)
+        np.testing.assert_allclose(got.numpy(), want[l], rtol=1e-8,
+                                   atol=1e-10)
+
+
+@pytest.mark.parametrize("layout", ["grid", "quarter", "all"])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_ops_cox_coord_with_and_without_group_events(layout, dtype):
+    x, t, delta = _tied_layout(layout, seed=6)
+    td = cox.prepare(x.astype(dtype), t, delta, device="cpu")
+    eta = td.x @ torch.tensor([0.3, -0.2, 0.1, 0.0, 0.25],
+                              dtype=getattr(torch, dtype))
+    groups = ops.group_events(td.delta, td.risk_start)
+    tol = 1e-8 if dtype == "float64" else 2e-5
+    for l in range(5):
+        args = (eta, td.xT[l], td.delta, td.risk_start)
+        for with_, without in (
+                (ops.cox_coord_grad_hess(*args, groups),
+                 ops.cox_coord_grad_hess(*args)),
+                (ops.cox_coord_all(*args, groups), ops.cox_coord_all(*args))):
+            for a, b in zip(with_, without):
+                assert a.dtype == getattr(torch, dtype)
+                np.testing.assert_allclose(a, b, rtol=tol, atol=tol)
+
+
 # ---------------------------------------------------------------------------
 # lipschitz
 # ---------------------------------------------------------------------------
@@ -129,15 +190,21 @@ def test_lipschitz_matches_pallas_tie_free(n, m):
     np.testing.assert_allclose(l3, l3_w, rtol=1e-4, atol=1e-4)
 
 
+@pytest.mark.parametrize("shared_groups", [False, True])
 @pytest.mark.parametrize("seed", [0, 1, 2])
-def test_lipschitz_matches_breslow_on_ties(seed):
+def test_lipschitz_matches_breslow_on_ties(seed, shared_groups):
+    """Both plain forms against JAX: at each sample's risk_start, and at
+    the group starts with the fit's shared group counts (what the kernel
+    computes)."""
     x, t, delta = make_tied_survival(n=400, p=7, n_times=10, seed=seed)
     x = x.astype(np.float64)
     with jax.enable_x64(True):
         want = [np.asarray(v) for v in
                 jcox.lipschitz_constants(jcox.prepare(x, t, delta))]
     td = cox.prepare(x, t, delta, device="cpu")
-    got = ops.lipschitz_constants(td.x, td.delta, td.risk_start)
+    groups = (ops.group_events(td.delta, td.risk_start) if shared_groups
+              else None)
+    got = ops.lipschitz_constants(td.x, td.delta, td.risk_start, groups)
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.numpy(), w, rtol=1e-8, atol=1e-12)
 
@@ -201,6 +268,25 @@ def test_revcumsum_vector_matches_jax_ops():
     got64 = revcumsum(_t(x.astype(np.float64)))
     assert got64.dtype == torch.float64
     np.testing.assert_allclose(got64.numpy(), want64, rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("m", [8, 9, 31, 32, 33, 1001])
+def test_revcumsum_matches_jax_plain_route(m, dtype):
+    """Widths on both sides of the kernel's panel/vector split (32 columns)
+    and of its 8- and 16-column strips, against the JAX package's plain
+    route (kernels/ref.py::revcumsum_ref)."""
+    n = 300
+    x32 = np.random.default_rng(m).standard_normal((n, m)).astype(np.float32)
+    with jax.enable_x64(False):
+        want = jref.revcumsum_ref(jnp.asarray(x32, dtype=getattr(jnp, dtype)))
+    tx = torch.from_numpy(x32).to(getattr(torch, dtype))
+    got = ops.revcumsum(tx)
+    assert got.dtype == tx.dtype and got.shape == (n, m)
+    tol = 1e-3 if dtype == "float32" else 3e-2
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), rtol=tol,
+                               atol=tol)
 
 
 # ---------------------------------------------------------------------------

@@ -9,7 +9,7 @@ torch = pytest.importorskip("torch")
 hypothesis = pytest.importorskip("hypothesis")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
-from hypothesis import given, settings, strategies as st  # noqa: E402
+from hypothesis import example, given, settings, strategies as st  # noqa: E402
 
 from repro.core import cox as jcox  # noqa: E402
 from repro.core import solvers as jsolvers  # noqa: E402
@@ -112,6 +112,7 @@ def test_cubic_l1_prox_vs_grid(a, b, c, d, lam1):
 
 @settings(max_examples=60, deadline=None)
 @given(finite, nonneg, pos, finite, nonneg)
+@example(5e-324, 0.0, 0.25, 0.0, 0.0)   # subnormal a: d == 0 branch's den is 0
 def test_cubic_l1_prox_paper_formula_agrees(a, b, c, d, lam1):
     """Eq. (22) literal formula reaches the same objective value as the
     candidate-enumeration solver."""
