@@ -12,14 +12,17 @@ Phases, each printed as it runs; any failed check raises:
      maximum error beside its tolerance: cox_coord at n = 1, a tile - 1, a
      tile, a tile + 1, 262,144 and 1,048,577, on tie-free data, small tie
      groups, groups wider than a tile and one group of a quarter of the
-     rows, with eta ~ 0.8 N(0, 1) and ~ U(-80, 80); lipschitz on the first,
-     second and fourth of those tie layouts; the curve panels with
-     eta = +/-50 in the batch; revcumsum at (65,536, m) for m = 1, 8, 31,
-     32, 33, 1,000, 1,001 and at ragged shapes, and cox_batch at the
-     streaming fit's shapes and at ragged ones, in float32 and bfloat16.
-     cox_coord and revcumsum must give the same bits twice, and one call of
-     each must issue its kernels (KERNELS_PER_CALL) and no other device
-     operation;
+     rows, with eta ~ 0.8 N(0, 1) and ~ U(-80, 80); lipschitz at n = 1,
+     257, 65,537 and 262,144 and p = 1, 37 and 1,000, tie-free, in small
+     groups, with a quarter of the rows in one group, with groups that
+     straddle segment edges and with every row in one group; the curve
+     panels with eta = +/-50 in the batch; revcumsum at (65,536, m) for
+     m = 1, 8, 31, 32, 33, 1,000, 1,001 and at ragged shapes; cox_batch at
+     n = 1, 255, 256, 257, 2,050 and 65,536 and p = 1, 31, 32, 33, 70 and
+     1,000, in float32 and bfloat16. Every kernel but the curves must give
+     the same bits twice, and one call of cox_coord, revcumsum, cox_batch
+     and lipschitz must launch its kernels (KERNELS_PER_CALL) and no other
+     device operation;
   3. fit: Appendix-C data at n = 262,144, p = 1,000 (rho 0.9, k 15, seed 0),
      ``fit_cd`` with cd_quad for 10 sweeps and cd_cubic for 3; the
      objective must not rise; cox_coord must be called p x sweeps times and
@@ -173,21 +176,29 @@ def device_ms(fn, reps: int):
 
     Device time is the sum of the CUDA activity (kernels, memsets, copies)
     that torch.profiler records over ``reps`` calls; wall time is the host
-    clock around them, ended by a synchronise."""
+    clock around them, ended by a synchronise. A profiler window that
+    records no device activity at all is profiled once more (a short window
+    of a few ctypes launches has come back empty); a second empty one
+    fails."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn(0)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for i in range(reps):
-            fn(i)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    busy_us = sum(e.device_time_total for e in prof.events()
-                  if e.device_type == DeviceType.CUDA)
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for i in range(reps):
+                fn(i)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        busy_us = sum(e.device_time_total for e in prof.events()
+                      if e.device_type == DeviceType.CUDA)
+        if busy_us > 0:
+            break
+        log(f"  torch.profiler recorded no device activity over {reps} "
+            f"calls; profiling again")
     check(busy_us > 0, "torch.profiler recorded no device activity")
     return busy_us / reps / 1e3, wall / reps * 1e3
 
@@ -204,17 +215,28 @@ def kernel_ms(fn, reps: int, rounds: int = 5):
 TIES = ("none", "small", "quarter")
 # cox_coord also takes groups of ~1.5 kernel tiles, each crossing tile edges
 COORD_TIES = TIES + ("wide",)
+# lipschitz also takes groups across its 256-row segments' edges, and one
+# group of every row
+LIP_TIES = TIES + ("edge", "all")
 
 
 def _risk_start(n: int, ties: str, gen):
     """Sorted tie-group starts: each sample's own index ("none"), groups of
-    ~64 ("small"), groups of ~1,536 ("wide"), or groups of ~64 and the last
+    ~64 ("small"), groups of ~1,536 ("wide"), groups of ~64 and the last
     quarter of the rows in one group, as administrative censoring at one
-    date gives ("quarter")."""
+    date gives ("quarter"), every row in one group ("all"), or each sample
+    its own group but rows 216-295 and 500-1,099 (as far as n reaches), one
+    group across a 256-row edge and one across three ("edge")."""
     import torch
 
-    if ties == "none":
-        return torch.arange(n, dtype=torch.int32, device="cuda")
+    if ties == "all":
+        return torch.zeros(n, dtype=torch.int32, device="cuda")
+    if ties in ("none", "edge"):
+        rs = torch.arange(n, dtype=torch.int32, device="cuda")
+        if ties == "edge":
+            for lo, hi in ((216, 296), (500, 1_100)):
+                rs[lo:hi] = lo
+        return rs
     size = 1536 if ties == "wide" else 64
     t = torch.sort(torch.randint(0, max(n // size, 1), (n,), device="cuda",
                                  generator=gen)).values
@@ -265,8 +287,8 @@ def check_launch_shape(name: str, fn, want: int, prefix: str) -> None:
           f"{name}: a call issued {names}")
 
 
-def check_kernels(coord_ns=None, lip_ps=(1, 37, P), lip_n=N,
-                  curve_bs=(1, 37, 4096), curve_gs=(128, 257)) -> dict:
+def check_kernels(coord_ns=None, curve_bs=(1, 37, 4096),
+                  curve_gs=(128, 257)) -> dict:
     """Every kernel against its plain version on the card; returns the
     largest absolute error of each."""
     import torch
@@ -274,11 +296,10 @@ def check_kernels(coord_ns=None, lip_ps=(1, 37, P), lip_n=N,
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels import cox_coord as coord_mod
     from repro_torch.kernels.cox_coord import cox_coord
-    from repro_torch.kernels.lipschitz import lipschitz
     from repro_torch.kernels.survival_curves import survival_curves
 
     gen = torch.Generator(device="cuda").manual_seed(1)
-    errs = {"cox_coord": 0.0, "lipschitz": 0.0, "survival_curves": 0.0}
+    errs = {"cox_coord": 0.0, "survival_curves": 0.0}
 
     def randn(*shape):
         return torch.randn(*shape, device="cuda", generator=gen)
@@ -330,28 +351,6 @@ def check_kernels(coord_ns=None, lip_ps=(1, 37, P), lip_n=N,
         f"cox_coord n={N}",
         lambda: cox_coord(eta, x, d, rs, group_events=groups),
         coord_mod.KERNELS_PER_CALL, "coord_")
-
-    for p in lip_ps:
-        for ties in TIES:
-            x = randn(lip_n, p)
-            d = (torch.rand(lip_n, device="cuda", generator=gen) < 0.7).float()
-            rs = _risk_start(lip_n, ties, gen)
-            got = lipschitz(x, d, rs)
-            want = ref.lipschitz_ref(x, d, rs)
-            # given the fit's shared group counts, the same bits
-            shared = lipschitz(x, d, rs, group_events=ops.group_events(d, rs))
-            del x
-            torch.cuda.synchronize()
-            check(all(torch.equal(a, b) for a, b in zip(got, shared)),
-                  f"lipschitz p={p} ties={ties}: given group_events differ")
-            err = max(float((g - w).abs().max()) for g, w in zip(got, want))
-            rel = max(float(((g - w).abs() / w.abs()).max())
-                      for g, w in zip(got, want))
-            log(f"  lipschitz n={lip_n} p={p} ties={ties}: max |err| "
-                f"{err:.3e}, max rel err {rel:.3e} (tol {LIPSCHITZ_RTOL:.0e})")
-            check(rel <= LIPSCHITZ_RTOL, f"lipschitz p={p} ties={ties}")
-            errs["lipschitz"] = max(errs["lipschitz"], err)
-            torch.cuda.empty_cache()
 
     for b in curve_bs:
         for g in curve_gs:
@@ -410,25 +409,22 @@ SCAN_SHAPES = tuple((STREAM_CHUNK, m) for m in (1, 8, 31, 32, 33, 1_000,
 
 
 def check_stream_kernels(scan_shapes=SCAN_SHAPES,
-                         batch_shapes=((65_536, 1_000), (1, 1), (2_050, 70)),
                          strat_shapes=((1, 1, 16), (37, 5, 257),
                                        (4_096, STRATA, 128))) -> dict:
-    """The second slice's kernels against their plain versions on the
-    card; returns the largest absolute error of each, in float32 and, for
-    the panel kernels, bfloat16."""
+    """revcumsum and the stratified curves against their plain versions on
+    the card; returns the largest absolute error of each, in float32 and,
+    for revcumsum, bfloat16."""
     import torch
 
     from repro_torch.kernels import ref
     from repro_torch.kernels import revcumsum as revcumsum_mod
-    from repro_torch.kernels.cox_batch import cox_batch
     from repro_torch.kernels.revcumsum import revcumsum
     from repro_torch.kernels.survival_curves import \
         survival_curves_stratified
 
     gen = torch.Generator(device="cuda").manual_seed(3)
-    errs = {"revcumsum": 0.0, "cox_batch": 0.0,
-            "survival_curves_stratified": 0.0}
-    errs_bf16 = {"revcumsum": 0.0, "cox_batch": 0.0}
+    errs = {"revcumsum": 0.0, "survival_curves_stratified": 0.0}
+    errs_bf16 = {"revcumsum": 0.0}
 
     def randn(*shape):
         return torch.randn(*shape, device="cuda", generator=gen)
@@ -467,33 +463,6 @@ def check_stream_kernels(scan_shapes=SCAN_SHAPES,
                        "rcs_vec")
     del panel, vector
 
-    for n, p in batch_shapes:
-        x32 = randn(n, p)
-        eta = randn(n) * 0.5
-        d = (torch.rand(n, device="cuda", generator=gen) < 0.7).float()
-        vecs = batch_vectors(eta, d)
-        for dtype in ("float32", "bfloat16"):
-            x = x32.to(getattr(torch, dtype))
-            got = cox_batch(x, *vecs)
-            want = ref.cox_batch_ref(x, *vecs)
-            torch.cuda.synchronize()
-            scales = _batch_scales(x, *vecs)
-            err = [(g.double() - w_.double()).abs()
-                   for g, w_ in zip(got, want)]
-            rel = max(float((e / sc.clamp_min(1e-30)).max())
-                      for e, sc in zip(err, scales))
-            abs_err = max(float(e.max()) for e in err)
-            log(f"  cox_batch n={n} p={p} {dtype}: max |err| {abs_err:.3e}, "
-                f"max |err|/sum|terms| {rel:.3e} (tol {COX_BATCH_TOL:.0e})")
-            check(rel <= COX_BATCH_TOL
-                  and all(bool(torch.isfinite(g).all()) for g in got),
-                  f"cox_batch n={n} p={p} {dtype}")
-            into = errs if dtype == "float32" else errs_bf16
-            into["cox_batch"] = max(into["cox_batch"], abs_err)
-            del x
-        del x32
-        torch.cuda.empty_cache()
-
     for b, s, g in strat_shapes:
         eta = randn(b) * 3.0
         eta[0] = 50.0
@@ -514,6 +483,116 @@ def check_stream_kernels(scan_shapes=SCAN_SHAPES,
         errs["survival_curves_stratified"] = max(
             errs["survival_curves_stratified"], err)
     return {"float32": errs, "bfloat16": errs_bf16}
+
+
+BATCH_NS = (1, 255, 256, 257, 2_050, STREAM_CHUNK)
+BATCH_PS = (1, 31, 32, 33, 70, P)
+
+
+def check_cox_batch(ns=BATCH_NS, ps=BATCH_PS) -> dict:
+    """cox_batch against its plain version on the card at every (n, p) of
+    ``ns`` x ``ps`` (segment and strip edges, odd p in bfloat16), the same
+    bits twice; then one call's launch shape. Returns the largest absolute
+    error in float32 and in bfloat16."""
+    import torch
+
+    from repro_torch.kernels import cox_batch as batch_mod
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.cox_batch import cox_batch
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    errs = {"float32": 0.0, "bfloat16": 0.0}
+    for n in ns:
+        for p in ps:
+            x32 = torch.randn(n, p, device="cuda", generator=gen)
+            eta = torch.randn(n, device="cuda", generator=gen) * 0.5
+            d = (torch.rand(n, device="cuda", generator=gen) < 0.7).float()
+            vecs = batch_vectors(eta, d)
+            for dtype in errs:
+                x = x32.to(getattr(torch, dtype))
+                got = [t.clone() for t in cox_batch(x, *vecs)]
+                again = cox_batch(x, *vecs)
+                want = ref.cox_batch_ref(x, *vecs)
+                torch.cuda.synchronize()
+                same = all(torch.equal(a, b) for a, b in zip(got, again))
+                scales = _batch_scales(x, *vecs)
+                err = [(g.double() - w_.double()).abs()
+                       for g, w_ in zip(got, want)]
+                rel = max(float((e / sc.clamp_min(1e-30)).max())
+                          for e, sc in zip(err, scales))
+                abs_err = max(float(e.max()) for e in err)
+                log(f"  cox_batch n={n} p={p} {dtype}: max |err| "
+                    f"{abs_err:.3e}, max |err|/sum|terms| {rel:.3e} (tol "
+                    f"{COX_BATCH_TOL:.0e}); same bits twice: {same}")
+                check(rel <= COX_BATCH_TOL and same
+                      and all(bool(torch.isfinite(g).all()) for g in got),
+                      f"cox_batch n={n} p={p} {dtype}")
+                errs[dtype] = max(errs[dtype], abs_err)
+                del x, got, again, want, err, scales
+            del x32
+            torch.cuda.empty_cache()
+    x = torch.randn(STREAM_CHUNK, P, device="cuda", generator=gen)
+    vecs = batch_vectors(torch.randn(STREAM_CHUNK, device="cuda",
+                                     generator=gen) * 0.5,
+                         (torch.rand(STREAM_CHUNK, device="cuda",
+                                     generator=gen) < 0.5).float())
+    for dtype in ("float32", "bfloat16"):
+        xd = x.to(getattr(torch, dtype))
+        check_launch_shape(f"cox_batch {tuple(x.shape)} {dtype}",
+                           lambda: cox_batch(xd, *vecs),
+                           batch_mod.KERNELS_PER_CALL, "cb_panel")
+    return errs
+
+
+def check_lipschitz(ns=(1, 257, 65_537, N), ps=(1, 37, P)) -> float:
+    """lipschitz against its plain version on the card at every (n, p) of
+    ``ns`` x ``ps`` and every tie layout of LIP_TIES: the same bits twice
+    and with or without the fit's group counts; then one call's launch
+    shape. Returns the largest absolute error."""
+    import torch
+
+    from repro_torch.kernels import lipschitz as lip_mod
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.lipschitz import lipschitz
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    worst = 0.0
+    for n in ns:
+        for p in ps:
+            for ties in LIP_TIES:
+                x = torch.randn(n, p, device="cuda", generator=gen)
+                d = (torch.rand(n, device="cuda", generator=gen)
+                     < 0.7).float()
+                rs = _risk_start(n, ties, gen)
+                groups = ops.group_events(d, rs)
+                got = [t.clone() for t in lipschitz(x, d, rs)]
+                again = lipschitz(x, d, rs, group_events=groups)
+                want = ref.lipschitz_ref(x, d, rs)
+                del x
+                torch.cuda.synchronize()
+                same = all(torch.equal(a, b) for a, b in zip(got, again))
+                err = max(float((g - w).abs().max())
+                          for g, w in zip(got, want))
+                rel = max(float(((g - w).abs() / w.abs().clamp_min(1e-30))
+                                .max()) for g, w in zip(got, want))
+                log(f"  lipschitz n={n} p={p} ties={ties}: max |err| "
+                    f"{err:.3e}, max rel err {rel:.3e} (tol "
+                    f"{LIPSCHITZ_RTOL:.0e}); same bits twice, with and "
+                    f"without group_events: {same}")
+                check(rel <= LIPSCHITZ_RTOL and same
+                      and all(bool(torch.isfinite(g).all()) for g in got),
+                      f"lipschitz n={n} p={p} ties={ties}")
+                worst = max(worst, err)
+                del got, again, want
+                torch.cuda.empty_cache()
+    x = torch.randn(N, P, device="cuda", generator=gen)
+    d = (torch.rand(N, device="cuda", generator=gen) < 0.7).float()
+    rs = _risk_start(N, "quarter", gen)
+    groups = ops.group_events(d, rs)
+    check_launch_shape(f"lipschitz {tuple(x.shape)}",
+                       lambda: lipschitz(x, d, rs, group_events=groups),
+                       lip_mod.KERNELS_PER_CALL, "lip_panel")
+    return worst
 
 
 # ---------------------------------------------------------------------------
@@ -969,7 +1048,7 @@ def timings(state) -> dict:
     # fit: the kernel reads x and those counts
     out["lipschitz"] = (
         kernel_ms(lambda i: lipschitz(data.x, data.delta, data.risk_start,
-                                      group_events=groups), reps=3),
+                                      group_events=groups), reps=10),
         kernel_ms(lambda i: ref.lipschitz_ref(data.x, data.delta,
                                               data.risk_start),
                   reps=1, rounds=3),
@@ -1115,6 +1194,10 @@ def main() -> int:
     stream_errs = check_stream_kernels()
     errs.update(stream_errs["float32"])
     errs_bf16 = stream_errs["bfloat16"]
+    batch_errs = check_cox_batch()
+    errs["cox_batch"] = batch_errs["float32"]
+    errs_bf16["cox_batch"] = batch_errs["bfloat16"]
+    errs["lipschitz"] = check_lipschitz()
 
     t0 = time.perf_counter()
     x, t, delta, _ = make_correlated_survival(

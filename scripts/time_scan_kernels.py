@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Time the cox_coord and revcumsum kernels of one checkout on a card.
+"""Time the scan kernels (cox_coord, revcumsum, cox_batch, lipschitz) of one
+checkout on a card.
 
     python3 scripts/time_scan_kernels.py [--src DIR] [--label NAME]
 
@@ -18,13 +19,19 @@ path's shapes:
     vector; beside them a device
     copy of the float32 panel (``clone``), which moves the bytes the scan
     must move;
+  - cox_batch on the same (65,536, 1,000) panel, float32 and bfloat16, with
+    the five vectors the chunk-mode fit forms, and lipschitz at
+    (262,144, 1,000) float32 given the fit's group counts; beside each a
+    read-only yardstick of the same panel, its column sum ``x.sum(0)``;
 
-and the wall time (host clock, ended by a synchronise) of the paths they
-serve, cut in depth: a ``cd_quad`` sweep of ``fit_cd`` at n = 262,144,
-p = 1,000 (x ~ N(0, 1) made on the card, times with ties in groups of ~64;
-the median of 3 one-sweep fits after a warm-up fit, each fit's Lipschitz
-pass included), and one global-mode ``fit_stream`` epoch over 16 chunks
-of (65,536, 1,000) (the median of 3 after a warm-up).
+the SHA-256 of the revcumsum, cox_batch and lipschitz outputs (two
+checkouts whose digests agree gave the same bits); and the wall time (host
+clock, ended by a synchronise) of the paths they serve, cut in depth: a
+``cd_quad`` sweep of ``fit_cd`` at n = 262,144, p = 1,000 (x ~ N(0, 1)
+made on the card, times with ties in groups of ~64; the median of 3
+one-sweep fits after a warm-up fit, each fit's Lipschitz pass included),
+and one ``fit_stream`` epoch over 16 chunks of (65,536, 1,000) in global
+and in chunk mode (the median of 3 after a warm-up).
 
 To compare two versions on one card, run it on both in one command, in
 turns (parent, change, change, parent), the parent unpacked with
@@ -33,6 +40,7 @@ turns (parent, change, change, parent), the parent unpacked with
 from __future__ import annotations
 
 import argparse
+import hashlib
 import inspect
 import json
 import statistics
@@ -66,6 +74,17 @@ def by_kernel_us(fn, reps: int) -> dict:
     return out
 
 
+def digest(tensors) -> str:
+    """SHA-256 of the tensors' bytes, in order."""
+    import torch
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().view(torch.uint8).cpu().numpy()
+                 .tobytes())
+    return h.hexdigest()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--src", default=str(ROOT / "src"))
@@ -78,9 +97,11 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("time_scan_kernels.py: CUDA is not available", file=sys.stderr)
         return 2
-    from chip_smoke import device_ms, events_ms
+    from chip_smoke import batch_vectors, device_ms, events_ms
     from repro_torch.kernels import _build, ops
+    from repro_torch.kernels.cox_batch import cox_batch
     from repro_torch.kernels.cox_coord import cox_coord
+    from repro_torch.kernels.lipschitz import lipschitz
     from repro_torch.kernels.revcumsum import revcumsum
 
     _build.library()
@@ -118,6 +139,21 @@ def main() -> int:
              "revcumsum (65536, 1000) bfloat16": (
                  lambda i: revcumsum(panel16), 50),
              "revcumsum (65536,)": (lambda i: revcumsum(vector), 400)}
+    vecs = batch_vectors(torch.randn(65_536, device="cuda", generator=gen)
+                         * 0.5, (torch.rand(65_536, device="cuda",
+                                            generator=gen) < 0.5).float())
+    tall = torch.randn(n, 1_000, device="cuda", generator=gen)
+    tall_groups = ops.group_events(d, rs)
+    cases.update({
+        "cox_batch (65536, 1000) float32": (
+            lambda i: cox_batch(panel, *vecs), 50),
+        "cox_batch (65536, 1000) bfloat16": (
+            lambda i: cox_batch(panel16, *vecs), 50),
+        "x.sum(0) (65536, 1000) float32": (lambda i: panel.sum(0), 50),
+        "x.sum(0) (65536, 1000) bfloat16": (lambda i: panel16.sum(0), 50),
+        "lipschitz (262144, 1000) float32, given D": (
+            lambda i: lipschitz(tall, d, rs, group_events=tall_groups), 20),
+        "x.sum(0) (262144, 1000) float32": (lambda i: tall.sum(0), 20)})
     out = {"label": args.label, "torch": torch.__version__,
            "card": subprocess.run(
                ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -128,7 +164,19 @@ def main() -> int:
         out[name] = {"device_us": dev_ms * 1e3,
                      "events_us": events_ms(fn, reps) * 1e3,
                      "by_kernel_us": by_kernel_us(fn, reps)}
-    del xs, panel, panel16, narrow, mid, half
+    out["inputs_sha256"] = digest([panel, *vecs, tall, d, rs, tall_groups])
+    out["sha256"] = {
+        "revcumsum (65536, 1000) float32": digest([revcumsum(panel)]),
+        "revcumsum (65536, 1000) bfloat16": digest([revcumsum(panel16)]),
+        "revcumsum (65536, 33) float32": digest(
+            [revcumsum(panel[:, :33].contiguous())]),
+        "revcumsum (65536,)": digest([revcumsum(vector)]),
+        "cox_batch (65536, 1000) float32": digest(cox_batch(panel, *vecs)),
+        "cox_batch (65536, 1000) bfloat16": digest(
+            cox_batch(panel16, *vecs)),
+        "lipschitz (262144, 1000) float32": digest(
+            lipschitz(tall, d, rs, group_events=tall_groups))}
+    del xs, panel, panel16, narrow, mid, half, tall
     torch.cuda.empty_cache()
 
     from repro_torch.core import cox, solvers
@@ -155,8 +203,10 @@ def main() -> int:
                                   generator=gen) * 0.5,
                     delta=(torch.rand(65_536, device="cuda", generator=gen)
                            < 0.5).float()) for _ in range(16)]
-    out["global epoch 16 x (65536, 1000) s"] = wall_s(
-        lambda: solvers.fit_stream(chunks, lam2=0.01, n_epochs=1))
+    for mode in ("global", "chunk"):
+        out[f"{mode} epoch 16 x (65536, 1000) s"] = wall_s(
+            lambda: solvers.fit_stream(chunks, lam2=0.01, n_epochs=1,
+                                       mode=mode))
     print(json.dumps(out), flush=True)
     return 0
 

@@ -19,6 +19,10 @@ _DTYPES = (torch.float32, torch.bfloat16)
 
 # calls that launched the CUDA kernel (the plain version counts nothing)
 launches = 0
+# kernel launches in one such call
+KERNELS_PER_CALL = 1
+# the last epoch handed to the kernel (its carries and counters carry it)
+_epoch = 0
 
 
 def cox_batch(x: Tensor, w: Tensor, r: Tensor, wa: Tensor, delta: Tensor,
@@ -26,9 +30,11 @@ def cox_batch(x: Tensor, w: Tensor, r: Tensor, wa: Tensor, delta: Tensor,
     """(grad (p,), hess_diag (p,)) of a time-sorted, tie-free (n, p) panel.
 
     On a card x is float32 or bfloat16 and the five (n,) vectors float32;
-    both outputs are float32. On the CPU the plain version runs, in float64
-    when given float64."""
-    global launches
+    both outputs are float32, and the call is one kernel launch and
+    nothing else (its scratch is the wrapper's own, kept per device and
+    stream). On the CPU the plain version runs, in float64 when given
+    float64."""
+    global launches, _epoch
     if x.dim() != 2 or x.shape[0] < 1 or x.shape[1] < 1:
         raise ValueError(f"cox_batch: x must be a non-empty (n, p) panel, "
                          f"got shape {tuple(x.shape)}")
@@ -41,15 +47,21 @@ def cox_batch(x: Tensor, w: Tensor, r: Tensor, wa: Tensor, delta: Tensor,
          **dict.fromkeys(vecs, torch.float32)})
     if not on_card:
         return ref.cox_batch_ref(x, w, r, wa, delta, inv_s0)
+    bf16 = int(x.dtype == torch.bfloat16)
     lib = _build.library()
-    scratch = torch.empty(lib.repro_cox_batch_scratch_bytes(n, p),
-                          dtype=torch.uint8, device=x.device)
-    grad = torch.empty(p, dtype=torch.float32, device=x.device)
-    hess = torch.empty(p, dtype=torch.float32, device=x.device)
+    dev, st = x.device, _build.stream()
+    nbytes = lib.repro_cox_batch_scratch_bytes
+    tagged = _build.scratch("cox_batch", nbytes(n, p, bf16, 0), torch.uint8,
+                            dev, st)
+    partials = _build.scratch("cox_batch.partials", nbytes(n, p, bf16, 1),
+                              torch.uint8, dev, st)
+    # nonzero, and never one a word of this scratch already holds
+    _epoch = _epoch % 0x7FFFFFFF + 1
+    out = torch.empty(2, p, dtype=torch.float32, device=dev)
     _build.check(lib.repro_cox_batch(
         x.data_ptr(), w.data_ptr(), r.data_ptr(), wa.data_ptr(),
-        delta.data_ptr(), inv_s0.data_ptr(), n, p,
-        int(x.dtype == torch.bfloat16), scratch.data_ptr(), grad.data_ptr(),
-        hess.data_ptr(), _build.stream()), "cox_batch")
+        delta.data_ptr(), inv_s0.data_ptr(), n, p, bf16, tagged.data_ptr(),
+        partials.data_ptr(), _epoch, out[0].data_ptr(), out[1].data_ptr(),
+        st), "cox_batch")
     launches += 1
-    return grad, hess
+    return out[0], out[1]

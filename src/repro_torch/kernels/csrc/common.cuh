@@ -25,39 +25,6 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);
 }
 
-// Per column j of a row-major (nc, m) table, in place:
-//   t[c, j] <- sum over c' > c of t[c', j]    (exclusive suffix over rows)
-// Called by a block of (32, LANES) threads; threadIdx.x picks the column
-// blockIdx.x * 32 + threadIdx.x, and lane threadIdx.y owns a contiguous run
-// of rows, so each thread makes ~2 nc / LANES loads instead of one thread
-// walking all nc rows. Every sum has a fixed order.
-template <int LANES>
-__device__ __forceinline__ void column_exclusive_suffix(float* t, int m,
-                                                        int nc) {
-  __shared__ float run[LANES][33];
-  const int j = blockIdx.x * 32 + threadIdx.x;
-  const int y = threadIdx.y;
-  const int per = (nc + LANES - 1) / LANES;
-  const int lo = y * per;
-  const int hi = min(lo + per, nc);
-  float s = 0.f;
-  if (j < m) {
-    for (int c = hi - 1; c >= lo; --c) s += t[static_cast<size_t>(c) * m + j];
-  }
-  run[y][threadIdx.x] = s;
-  __syncthreads();
-  float carry = 0.f;
-  for (int yy = LANES - 1; yy > y; --yy) carry += run[yy][threadIdx.x];
-  if (j < m) {
-    for (int c = hi - 1; c >= lo; --c) {
-      const size_t o = static_cast<size_t>(c) * m + j;
-      const float v = t[o];
-      t[o] = carry;
-      carry += v;
-    }
-  }
-}
-
 // Sum of `v` over the threads of the block whose index is greater than the
 // caller's (exclusive suffix). `*total` receives the sum over the whole
 // block, the same value in every thread. All threads of the block must call.

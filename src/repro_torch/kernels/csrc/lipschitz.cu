@@ -9,163 +9,204 @@
 // the running extrema in VMEM, and is tie-free: it reads the range at i,
 // not at the start of i's tie group.
 //
-// Design. X is row-major (n, p), so neighbouring threads take neighbouring
-// columns and every warp load is one 128-byte line. One thread walking a
-// whole column would leave p threads on the card (1,000 at the main path's
-// width, 32 warps for 132 SMs) with little memory traffic in flight; the
-// rows are cut into chunks of 256 instead, one thread per (chunk, column).
 // The kernel takes D (n,), D[a] = the sum of delta over the tie group that
 // starts at a (0 off group starts; kernels/ref.py::group_events, made once
 // per fit and shared with cox_coord), so the sum over i becomes a sum over
-// group starts and chunks need not know each other's groups: a group that
-// holds a large share of n (administrative censoring at one date) costs no
-// walk.
-//   1. lip_chunk_extrema: max/min of each (chunk, column);
-//   2. lip_chunk_carry: per column, the exclusive suffix of those extrema
-//      over chunks (what lies to the right of each chunk), in place;
-//   3. lip_walk: each (chunk, column) walks its rows from last to first,
-//      extending the carried extrema, and adds D[a] range^2 and D[a] range^3
-//      at each group start a, accumulating in double;
-//   4. lip_finish: per column, the chunk partials in a fixed order.
+// group starts, each term local to its row: a tie group that straddles
+// segments, or holds every row, costs no walk and needs no gather.
+//
+// Design: one launch that reads X once, on revcumsum.cu's strip tiles
+// (strip.cuh; 256-row segments, 32-column strips). For each tile:
+//   1. each thread loads its run of 32 rows raw into registers and forms
+//      the run's max and min; the block stages the segment's D in shared
+//      memory and forms, per column, the extrema of its later runs;
+//   2. the tile publishes its extrema and gathers those of every later
+//      segment of the strip by strip.cuh's ticket, epoch-tagged words
+//      (a max word and a min word a column) and fixed 8-segment formula;
+//      max and min are exact in any order, the tickets and epochs keep the
+//      values valid and the waits free of deadlock;
+//   3. each thread walks its run from the last row, extending the extrema,
+//      and adds D range^2 and D range^3 in float64 at each row with D != 0;
+//   4. the (segment, column) partials are summed in a fixed order
+//      (strip.cuh::sum_partials), and the strip's last block writes L2, L3.
 //
 // What bounds it on an H100: bytes. The function must read X once (4 n p
-// bytes; 1.05 GB at n = 262,144, p = 1,000) for ~8 flops an element. This
-// design reads X twice (steps 1 and 3), so it can reach half the bound at
-// best. It runs once per fit.
+// bytes; 1.05 GB at n = 262,144, p = 1,000, 313 us at 3.35 TB/s) for ~8
+// flops an element. This design reads X once; the carry words and the
+// partials add ~5 % to the bytes at that shape. It runs once per fit.
+//
+// No float atomics: every sum has a fixed order, so a fit repeats its bits.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "strip.cuh"
+
 namespace {
 
-constexpr int kChunk = 256;   // rows per chunk
-constexpr int kColThreads = 32;
-constexpr int kChunkThreads = 8;
+namespace strip = repro::strip;
+
+constexpr int kParts = 2;  // the sums of D range^2 and D range^3
+constexpr int kCols = strip::kCols;
 constexpr double kInv6Sqrt3 = 0.09622504486493763;  // 1 / (6 sqrt(3))
+using L = strip::Layout<float>;
 
-__global__ void lip_chunk_extrema(const float* __restrict__ x, int n, int p,
-                                  int nc, float* __restrict__ cmax,
-                                  float* __restrict__ cmin) {
-  const int j = blockIdx.x * kColThreads + threadIdx.x;
-  const int c = blockIdx.y * kChunkThreads + threadIdx.y;
-  if (j >= p || c >= nc) return;
-  const int lo = c * kChunk;
-  const int hi = min(lo + kChunk, n);
-  float mx = -INFINITY, mn = INFINITY;
-  for (int i = lo; i < hi; ++i) {
-    const float v = x[static_cast<size_t>(i) * p + j];
-    mx = fmaxf(mx, v);
-    mn = fminf(mn, v);
+__global__ void __launch_bounds__(strip::kThreads, 4)
+lip_panel(const float* __restrict__ x, const float* __restrict__ dsum, int n,
+          int p, int strips, int nseg, unsigned epoch,
+          unsigned* __restrict__ ticket, strip::Words words_max,
+          strip::Words words_min, strip::Partials<kParts> parts,
+          float* __restrict__ l2, float* __restrict__ l3) {
+  constexpr int SLOTS = L::SLOTS;
+  constexpr int kRun = strip::kRun;
+  constexpr int kGroups = L::kGroups;
+  constexpr int kSegRows = L::kSegRows;
+  __shared__ float s_d[kSegRows];
+  __shared__ float s_mx[kGroups][kCols];
+  __shared__ float s_mn[kGroups][kCols];
+  __shared__ double s_a2[kGroups][kCols];
+  __shared__ double s_a3[kGroups][kCols];
+  const strip::Tile tile = strip::take_tile(ticket, strips, nseg);
+  const int c = threadIdx.x % SLOTS;
+  const int grp = threadIdx.x / SLOTS;
+  const int j = tile.strip * kCols + c;
+  const int base = tile.seg * kSegRows;
+  const int lo = base + grp * kRun;
+  const int rows = min(kRun, n - lo);  // rows of the run that exist
+
+  // 1. The run, raw, all its loads in flight; its extrema; the segment's D.
+  float v[kRun];
+  strip::load_run<float, true>(x, n, p, lo, j, v);
+  for (int q = threadIdx.x; q < kSegRows; q += strip::kThreads) {
+    const int i = base + q;
+    s_d[q] = i < n ? dsum[i] : 0.f;
   }
-  cmax[static_cast<size_t>(c) * p + j] = mx;
-  cmin[static_cast<size_t>(c) * p + j] = mn;
-}
-
-__global__ void lip_chunk_carry(float* __restrict__ cmax,
-                                float* __restrict__ cmin, int p, int nc) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= p) return;
   float mx = -INFINITY, mn = INFINITY;
-  for (int c = nc - 1; c >= 0; --c) {
-    const size_t o = static_cast<size_t>(c) * p + j;
-    const float a = cmax[o], b = cmin[o];
-    cmax[o] = mx;
-    cmin[o] = mn;
-    mx = fmaxf(mx, a);
-    mn = fminf(mn, b);
-  }
-}
-
-__global__ void lip_walk(const float* __restrict__ x,
-                         const float* __restrict__ dsum, int n, int p, int nc,
-                         const float* __restrict__ cmax,
-                         const float* __restrict__ cmin,
-                         double* __restrict__ part2,
-                         double* __restrict__ part3) {
-  const int j = blockIdx.x * kColThreads + threadIdx.x;
-  const int c = blockIdx.y * kChunkThreads + threadIdx.y;
-  if (j >= p || c >= nc) return;
-  const size_t o = static_cast<size_t>(c) * p + j;
-  const int lo = c * kChunk;
-  const int hi = min(lo + kChunk, n);
-  float mx = cmax[o], mn = cmin[o];
-  double a2 = 0.0, a3 = 0.0;
-  for (int i = hi - 1; i >= lo; --i) {
-    const float v = x[static_cast<size_t>(i) * p + j];
-    mx = fmaxf(mx, v);
-    mn = fminf(mn, v);
-    const float d = dsum[i];
-    if (d != 0.f) {
-      const double r = static_cast<double>(mx - mn);
-      a2 += d * r * r;
-      a3 += d * r * r * r;
+#pragma unroll
+  for (int k = kRun - 1; k >= 0; --k) {
+    if (k < rows) {
+      mx = fmaxf(mx, v[k]);
+      mn = fminf(mn, v[k]);
     }
   }
-  part2[o] = a2;
-  part3[o] = a3;
-}
-
-__global__ void lip_finish(const double* __restrict__ part2,
-                           const double* __restrict__ part3, int p, int nc,
-                           float* __restrict__ l2, float* __restrict__ l3) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= p) return;
-  double a2 = 0.0, a3 = 0.0;
-  for (int c = 0; c < nc; ++c) {
-    a2 += part2[static_cast<size_t>(c) * p + j];
-    a3 += part3[static_cast<size_t>(c) * p + j];
+  s_mx[grp][c] = mx;
+  s_mn[grp][c] = mn;
+  __syncthreads();
+  float later_mx = -INFINITY, later_mn = INFINITY;  // the tile's later runs
+  for (int q = kGroups - 1; q > grp; --q) {
+    later_mx = fmaxf(later_mx, s_mx[q][c]);
+    later_mn = fminf(later_mn, s_mn[q][c]);
   }
-  l2[j] = static_cast<float>(0.25 * a2);
-  l3[j] = static_cast<float>(kInv6Sqrt3 * a3);
+
+  // 2. The extrema of every later segment of the strip.
+  const strip::Words words[2] = {words_max, words_min};
+  const int col[2] = {c, c};
+  const float total[2] = {fmaxf(later_mx, mx), fminf(later_mn, mn)};
+  float carry[2];
+  strip::carry_from_below<strip::MaxMin, L::kWindow, SLOTS>(
+      words, col, total, strips, tile, nseg, grp, c, epoch, carry);
+
+  // 3. The walk, last row first, from everything below the run.
+  float hi = fmaxf(carry[0], later_mx), low = fminf(carry[1], later_mn);
+  const float* d = s_d + grp * kRun;
+  double a2 = 0.0, a3 = 0.0;
+#pragma unroll
+  for (int k = kRun - 1; k >= 0; --k) {
+    if (k < rows) {
+      hi = fmaxf(hi, v[k]);
+      low = fminf(low, v[k]);
+      const float dk = d[k];
+      if (dk != 0.f) {
+        const double range = static_cast<double>(hi - low);
+        a2 += dk * range * range;
+        a3 += dk * range * range * range;
+      }
+    }
+  }
+  s_a2[grp][c] = a2;
+  s_a3[grp][c] = a3;
+  __syncthreads();
+
+  // 4. The tile's partials over its runs: thread t < kCols the sum of
+  // D range^2 of column t, thread kCols + t that of D range^3.
+  const int t = threadIdx.x;
+  double mine = 0.0;
+  if (t < kParts * kCols) {
+    const double(*src)[kCols] = t < kCols ? s_a2 : s_a3;
+    for (int q = 0; q < kGroups; ++q) mine += src[q][t % kCols];
+  }
+  double sum = 0.0;
+  if (!strip::sum_partials<kParts>(parts, mine, strips, tile, nseg, epoch,
+                                   &sum))
+    return;
+  if (t < kParts * kCols) {
+    const int jj = tile.strip * kCols + t % kCols;
+    if (jj < p) {
+      if (t < kCols) {
+        l2[jj] = static_cast<float>(0.25 * sum);
+      } else {
+        l3[jj] = static_cast<float>(kInv6Sqrt3 * sum);
+      }
+    }
+  }
 }
 
-struct Layout {
-  double* part2;
-  double* part3;
-  float* cmax;
-  float* cmin;
+struct Dims {
+  int strips;
+  int nseg;
+  size_t words;  // words of one carried value: (nseg, strips, kCols)
 };
 
-Layout layout(void* scratch, int n, int p) {
-  const size_t nc = (n + kChunk - 1) / kChunk;
-  Layout l;
-  l.part2 = static_cast<double*>(scratch);
-  l.part3 = l.part2 + nc * p;
-  l.cmax = reinterpret_cast<float*>(l.part3 + nc * p);
-  l.cmin = l.cmax + nc * p;
-  return l;
+Dims dims(int n, int p) {
+  Dims d;
+  d.strips = (p + kCols - 1) / kCols;
+  d.nseg = (n + L::kSegRows - 1) / L::kSegRows;
+  d.words = static_cast<size_t>(d.nseg) * d.strips * kCols;
+  return d;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Bytes of scratch that repro_lipschitz needs for an (n, p) panel.
-long long repro_lipschitz_scratch_bytes(int n, int p) {
-  const long long nc = (n + kChunk - 1) / kChunk;
-  return nc * p * (2 * sizeof(double) + 2 * sizeof(float));
+// Bytes of scratch that repro_lipschitz needs for an (n, p) panel: the
+// tagged scratch (ticket, words A and P of the max and the min, counters),
+// or with `partials` != 0 the partials' scratch. The tagged scratch's first
+// word is a ticket that must be zero before the first call (every call
+// leaves it zero), and its other words must never hold a later epoch than
+// the call's: a zeroed buffer and epochs counting up from 1 do. It must not
+// be shared with another kernel's scratch. The partials' scratch may hold
+// anything.
+long long repro_lipschitz_scratch_bytes(int n, int p, int partials) {
+  const Dims d = dims(n, p);
+  if (partials) return strip::partials_bytes<kParts>(d.nseg, d.strips);
+  return strip::kTicketBytes + 4 * static_cast<long long>(d.words) * 8 +
+         strip::counters_bytes(d.nseg, d.strips);
 }
 
 // l2, l3 (p,) from a time-sorted row-major x (n, p) and the tie groups'
-// event counts dsum (n,) at their starts.
+// event counts dsum (n,) at their starts. `epoch` is nonzero and differs
+// from the previous call's on the same scratch. One launch on `stream`, no
+// other device work.
 int repro_lipschitz(const float* x, const float* dsum, int n, int p,
-                    void* scratch, float* l2, float* l3, void* stream) {
-  if (n <= 0 || p <= 0) return static_cast<int>(cudaErrorInvalidValue);
+                    void* tagged, void* partials, unsigned epoch, float* l2,
+                    float* l3, void* stream) {
+  if (n <= 0 || p <= 0 || epoch == 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Dims d = dims(n, p);
+  if (static_cast<long long>(d.strips) * d.nseg > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int nc = (n + kChunk - 1) / kChunk;
-  const Layout s = layout(scratch, n, p);
-  const dim3 block(kColThreads, kChunkThreads);
-  const dim3 grid((p + kColThreads - 1) / kColThreads,
-                  (nc + kChunkThreads - 1) / kChunkThreads);
-  cudaError_t err;
-  lip_chunk_extrema<<<grid, block, 0, st>>>(x, n, p, nc, s.cmax, s.cmin);
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  lip_chunk_carry<<<(p + 255) / 256, 256, 0, st>>>(s.cmax, s.cmin, p, nc);
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  lip_walk<<<grid, block, 0, st>>>(x, dsum, n, p, nc, s.cmax, s.cmin,
-                                   s.part2, s.part3);
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  lip_finish<<<(p + 255) / 256, 256, 0, st>>>(s.part2, s.part3, p, nc, l2, l3);
+  char* s = static_cast<char*>(tagged);
+  unsigned long long* words =
+      reinterpret_cast<unsigned long long*>(s + strip::kTicketBytes);
+  const strip::Words wmax{words, words + d.words};
+  const strip::Words wmin{words + 2 * d.words, words + 3 * d.words};
+  const strip::Partials<kParts> parts = strip::carve_partials<kParts>(
+      partials, words + 4 * d.words, d.nseg, d.strips);
+  lip_panel<<<d.strips * d.nseg, strip::kThreads, 0, st>>>(
+      x, dsum, n, p, d.strips, d.nseg, epoch, reinterpret_cast<unsigned*>(s),
+      wmax, wmin, parts, l2, l3);
   return static_cast<int>(cudaGetLastError());
 }
 

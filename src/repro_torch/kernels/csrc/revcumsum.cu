@@ -32,7 +32,9 @@
 // the same sum, in the same order, of the aggregates of the next 7
 // segments and the inclusive sum of the 8th, so bits repeat, and the
 // serial chain steps 8 segments at a time. Each value is packed with the
-// call's epoch in one 64-bit word: no memset or fence per call.
+// call's epoch in one 64-bit word: no memset or fence per call. The tiles,
+// the ticket, the epoch-tagged words and the carry formula live in
+// strip.cuh, shared with cox_batch.cu and lipschitz.cu.
 //
 // m < 32 (the (chunk_rows,) hazard vector w, and narrow panels): one block
 // per (tile of 1024 rows, column), in two launches, as cox_coord.cu:
@@ -47,63 +49,15 @@
 #include <stdint.h>
 
 #include "common.cuh"
+#include "strip.cuh"
 
 namespace {
 
-constexpr int kPanelThreads = 256;
-constexpr int kHeaderBytes = 16;    // the panel ticket, padded
+namespace strip = repro::strip;
+
 constexpr int kThreads = 256;       // m < 32 layout
 constexpr int kItems = 4;
 constexpr int kTile = kThreads * kItems;  // rows per block
-
-// What a panel thread holds of one row: one float32 column, or a pair of
-// neighbouring bfloat16 columns in one 32-bit register.
-template <typename T>
-struct Slot;
-template <>
-struct Slot<float> {
-  using V = float;
-  static constexpr int kW = 1;
-  static __device__ __forceinline__ V zero() { return 0.f; }
-};
-template <>
-struct Slot<__nv_bfloat16> {
-  using V = __nv_bfloat162;
-  static constexpr int kW = 2;
-  static __device__ __forceinline__ V zero() {
-    return __float2bfloat162_rn(0.f);
-  }
-};
-
-constexpr int kRun = 32;        // rows a panel thread holds
-constexpr int kStripCols = 32;  // columns of a strip
-
-// The panel layout: SLOTS threads across a strip of kStripCols columns,
-// kGroups runs of kRun rows down a tile.
-template <typename T>
-struct Layout {
-  static constexpr int SLOTS = kStripCols / Slot<T>::kW;
-  static constexpr int kCols = kStripCols;
-  static constexpr int kGroups = kPanelThreads / SLOTS;
-  static constexpr int kSegRows = kGroups * kRun;
-  // segments a carry reaches back in one step (a thread group fetches each)
-  static constexpr int kWindow = kGroups < 8 ? kGroups : 8;
-};
-
-// Row i of the thread's columns j, j + 1, ...: whole-pair loads when PAIRED
-// (m even, so a pair never straddles a row), else element by element.
-template <typename T, bool PAIRED>
-__device__ __forceinline__ typename Slot<T>::V load_slot(const T* x, size_t o,
-                                                         int j, int m) {
-  if constexpr (Slot<T>::kW == 1) {
-    return x[o];
-  } else if constexpr (PAIRED) {
-    return *reinterpret_cast<const __nv_bfloat162*>(x + o);
-  } else {
-    const __nv_bfloat16 zero = __float2bfloat16(0.f);
-    return __halves2bfloat162(x[o], j + 1 < m ? x[o + 1] : zero);
-  }
-}
 
 __device__ __forceinline__ void add_slot(float (&a)[1], float v) { a[0] += v; }
 __device__ __forceinline__ void add_slot(float (&a)[2], __nv_bfloat162 v) {
@@ -113,8 +67,8 @@ __device__ __forceinline__ void add_slot(float (&a)[2], __nv_bfloat162 v) {
 
 template <typename T, bool PAIRED>
 __device__ __forceinline__ void store_slot(T* out, size_t o, int j, int m,
-                                           const float (&a)[Slot<T>::kW]) {
-  if constexpr (Slot<T>::kW == 1) {
+                                           const float (&a)[strip::Slot<T>::kW]) {
+  if constexpr (strip::Slot<T>::kW == 1) {
     out[o] = a[0];
   } else if constexpr (PAIRED) {
     *reinterpret_cast<__nv_bfloat162*>(out + o) =
@@ -125,72 +79,28 @@ __device__ __forceinline__ void store_slot(T* out, size_t o, int j, int m,
   }
 }
 
-__device__ __forceinline__ unsigned long long pack(float v, unsigned epoch) {
-  return (static_cast<unsigned long long>(epoch) << 32) | __float_as_uint(v);
-}
-
-__device__ __forceinline__ void publish(unsigned long long* p, float v,
-                                        unsigned epoch) {
-  *reinterpret_cast<volatile unsigned long long*>(p) = pack(v, epoch);
-}
-
-// The value of `*p` once it carries this call's epoch. Its writer holds an
-// earlier ticket and runs; a value that has not come after ~2^26 polls is
-// a fault: trap, never hang.
-__device__ __forceinline__ float wait_for(const unsigned long long* p,
-                                          unsigned epoch) {
-  const volatile unsigned long long* src = p;
-  unsigned long long word = *src;
-  for (unsigned spins = 0; static_cast<unsigned>(word >> 32) != epoch;
-       ++spins) {
-    if (spins > (1u << 26)) __trap();
-    __nanosleep(64);
-    word = *src;
-  }
-  return __uint_as_float(static_cast<unsigned>(word));
-}
-
 template <typename T, bool PAIRED>
-__global__ void __launch_bounds__(kPanelThreads, 4)
+__global__ void __launch_bounds__(strip::kThreads, 4)
 rcs_panel(const T* __restrict__ x, int n, int m, int strips, int nseg,
           unsigned epoch, unsigned* __restrict__ ticket,
           unsigned long long* __restrict__ aggregates,
           unsigned long long* __restrict__ inclusive, T* __restrict__ out) {
-  using L = Layout<T>;
+  using L = strip::Layout<T>;
   constexpr int SLOTS = L::SLOTS;
-  constexpr int W = Slot<T>::kW;
-  constexpr int kCols = L::kCols;
+  constexpr int W = strip::Slot<T>::kW;
+  constexpr int kRun = strip::kRun;
   constexpr int kGroups = L::kGroups;
   constexpr int kSegRows = L::kSegRows;
-  constexpr int kWindow = L::kWindow;
-  __shared__ int s_tile;
-  __shared__ float s_tot[kGroups][kCols];
-  __shared__ float s_in[kWindow + 1][kCols];
-  if (threadIdx.x == 0) {
-    const int t = static_cast<int>(atomicAdd(ticket, 1u));
-    // every other block holds its ticket already: reset for the next call
-    if (t == strips * nseg - 1) *ticket = 0u;
-    s_tile = t;
-  }
-  __syncthreads();
-  const int t = s_tile;
-  const int strip = t % strips;
-  const int seg = nseg - 1 - t / strips;
+  __shared__ float s_tot[kGroups][strip::kCols];
+  const strip::Tile tile = strip::take_tile(ticket, strips, nseg);
   const int c = threadIdx.x % SLOTS;
   const int grp = threadIdx.x / SLOTS;
-  const int j = strip * kCols + c * W;  // the thread's first column
-  const int lo = seg * kSegRows + grp * kRun;
-  const bool col_ok = j < m;
+  const int j = tile.strip * strip::kCols + c * W;  // the thread's first column
+  const int lo = tile.seg * kSegRows + grp * kRun;
 
   // The run, raw, all its loads in flight at once; its sum.
-  typename Slot<T>::V v[kRun];
-#pragma unroll
-  for (int r = 0; r < kRun; ++r) {
-    const int i = lo + r;
-    v[r] = (col_ok && i < n)
-               ? load_slot<T, PAIRED>(x, static_cast<size_t>(i) * m + j, j, m)
-               : Slot<T>::zero();
-  }
+  typename strip::Slot<T>::V v[kRun];
+  strip::load_run<T, PAIRED>(x, n, m, lo, j, v);
   float acc[W] = {};
 #pragma unroll
   for (int r = kRun - 1; r >= 0; --r) add_slot(acc, v[r]);
@@ -203,47 +113,22 @@ rcs_panel(const T* __restrict__ x, int n, int m, int strips, int nseg,
     for (int w = 0; w < W; ++w) later[w] += s_tot[q][c * W + w];
   }
 
-  // Word (segment, strip, column) of the aggregates and the inclusive sums.
-  auto word = [&](int sg, int col) {
-    return (static_cast<size_t>(sg) * strips + strip) * kCols + col;
-  };
-  // This tile's aggregate is known: publish it at once.
-  if (grp == 0) {
-#pragma unroll
-    for (int w = 0; w < W; ++w)
-      publish(aggregates + word(seg, c * W + w), later[w] + acc[w], epoch);
-  }
-  // The carry from below, by one formula whatever the timing:
-  //   carry(s) = A(s + 1) + ... + A(s + kWindow - 1) + P(s + kWindow),
-  // the terms past the last segment 0, where A is a tile's aggregate and
-  // P(s) = carry(s) + A(s) its inclusive sum. Thread group k - 1 fetches
-  // A(s + k) for 1 <= k < kWindow and P(s + kWindow) for k = kWindow, so
-  // the serial chain runs through every kWindow-th segment only.
-  if (grp < kWindow) {
-    const int k = grp + 1;
-    const int sg = seg + k;
-#pragma unroll
-    for (int w = 0; w < W; ++w) {
-      float in = 0.f;
-      if (sg < nseg) {
-        in = wait_for((k < kWindow ? aggregates : inclusive) +
-                          word(sg, c * W + w), epoch);
-      }
-      s_in[k][c * W + w] = in;
-    }
-  }
-  __syncthreads();
-  float run[W];
+  // The carry from the later segments of the strip (strip.cuh).
+  strip::Words words[W];
+  int col[W];
+  float total[W], carry[W];
 #pragma unroll
   for (int w = 0; w < W; ++w) {
-    const int col = c * W + w;
-    float carry = 0.f;
-    for (int k = kWindow; k >= 1; --k) carry += s_in[k][col];
-    if (grp == 0 && seg > 0)
-      publish(inclusive + word(seg, col), carry + (later[w] + acc[w]), epoch);
-    run[w] = carry + later[w];
+    words[w] = strip::Words{aggregates, inclusive};
+    col[w] = c * W + w;
+    total[w] = later[w] + acc[w];  // the tile's, in thread group 0
   }
-  if (!col_ok) return;
+  strip::carry_from_below<strip::Sum, L::kWindow, SLOTS>(
+      words, col, total, strips, tile, nseg, grp, c, epoch, carry);
+  if (j >= m) return;
+  float run[W];
+#pragma unroll
+  for (int w = 0; w < W; ++w) run[w] = carry[w] + later[w];
   // The walk, last row first, from everything below the run.
 #pragma unroll
   for (int r = kRun - 1; r >= 0; --r) {
@@ -319,25 +204,25 @@ rcs_vec_finish(const T* __restrict__ x, int n, int m, int nb,
 
 template <typename T>
 long long panel_scratch_bytes(int n, int m) {
-  using L = Layout<T>;
-  const long long strips = (m + L::kCols - 1) / L::kCols;
+  using L = strip::Layout<T>;
+  const long long strips = (m + strip::kCols - 1) / strip::kCols;
   const long long nseg = (n + L::kSegRows - 1) / L::kSegRows;
-  return kHeaderBytes + 2 * nseg * strips * L::kCols * 8;  // A and P words
+  return strip::kTicketBytes + 2 * nseg * strips * strip::kCols * 8;  // A, P
 }
 
 template <typename T, bool PAIRED>
 int launch_panel(const T* x, int n, int m, unsigned epoch, char* scratch,
                  T* out, cudaStream_t st) {
-  using L = Layout<T>;
-  const int strips = (m + L::kCols - 1) / L::kCols;
+  using L = strip::Layout<T>;
+  const int strips = (m + strip::kCols - 1) / strip::kCols;
   const int nseg = (n + L::kSegRows - 1) / L::kSegRows;
   if (static_cast<long long>(strips) * nseg > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
   unsigned long long* words =
-      reinterpret_cast<unsigned long long*>(scratch + kHeaderBytes);
-  rcs_panel<T, PAIRED><<<strips * nseg, kPanelThreads, 0, st>>>(
+      reinterpret_cast<unsigned long long*>(scratch + strip::kTicketBytes);
+  rcs_panel<T, PAIRED><<<strips * nseg, strip::kThreads, 0, st>>>(
       x, n, m, strips, nseg, epoch, reinterpret_cast<unsigned*>(scratch),
-      words, words + static_cast<size_t>(nseg) * strips * L::kCols, out);
+      words, words + static_cast<size_t>(nseg) * strips * strip::kCols, out);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -347,7 +232,7 @@ int launch(const T* x, int n, int m, unsigned epoch, char* scratch, T* out,
   if (m >= 32) {
     // bfloat16 pairs load whole when no pair straddles a row or a 4-byte
     // boundary
-    const bool paired = Slot<T>::kW == 2 && m % 2 == 0 &&
+    const bool paired = strip::Slot<T>::kW == 2 && m % 2 == 0 &&
                         reinterpret_cast<uintptr_t>(x) % 4 == 0 &&
                         reinterpret_cast<uintptr_t>(out) % 4 == 0;
     return paired
@@ -355,7 +240,7 @@ int launch(const T* x, int n, int m, unsigned epoch, char* scratch, T* out,
                : launch_panel<T, false>(x, n, m, epoch, scratch, out, st);
   }
   const int nb = (n + kTile - 1) / kTile;
-  float* totals = reinterpret_cast<float*>(scratch + kHeaderBytes);
+  float* totals = reinterpret_cast<float*>(scratch + strip::kTicketBytes);
   rcs_vec_totals<T><<<dim3(nb, m), kThreads, 0, st>>>(x, n, m, nb, totals);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -378,7 +263,7 @@ long long repro_revcumsum_scratch_bytes(int n, int m, int bf16) {
                 : panel_scratch_bytes<float>(n, m);
   }
   const long long nb = (n + kTile - 1) / kTile;
-  return kHeaderBytes + nb * m * 4;
+  return strip::kTicketBytes + nb * m * 4;
 }
 
 // out (n, m) <- suffix sum of x (n, m) along rows; bf16 != 0 means both are

@@ -18,6 +18,10 @@ Tensor = torch.Tensor
 
 # calls that launched the CUDA kernel (the plain version counts nothing)
 launches = 0
+# kernel launches in one such call given ``group_events``
+KERNELS_PER_CALL = 1
+# the last epoch handed to the kernel (its carries and counters carry it)
+_epoch = 0
 
 
 def lipschitz(x: Tensor, delta: Tensor, risk_start: Tensor,
@@ -27,10 +31,12 @@ def lipschitz(x: Tensor, delta: Tensor, risk_start: Tensor,
     On a card x and delta are float32 and risk_start int32; the kernel
     reads the tie groups' event counts ``group_events``
     (``ref.group_events(delta, risk_start)``, which a fit makes once and
-    shares with ``cox_coord``), made by the call when not given. On the CPU
-    the plain version runs, in float64 when given float64: the risk-start
-    form, or the group-start form when ``group_events`` is given."""
-    global launches
+    shares with ``cox_coord``), made by the call when not given. Given
+    them, the call is one kernel launch and nothing else (its scratch is
+    the wrapper's own, kept per device and stream). On the CPU the plain
+    version runs, in float64 when given float64: the risk-start form, or
+    the group-start form when ``group_events`` is given."""
+    global launches, _epoch
     if x.dim() != 2 or x.shape[0] < 1 or x.shape[1] < 1:
         raise ValueError(f"lipschitz: x must be a non-empty (n, p) panel, "
                          f"got shape {tuple(x.shape)}")
@@ -51,13 +57,18 @@ def lipschitz(x: Tensor, delta: Tensor, risk_start: Tensor,
     if group_events is None:
         group_events = ref.group_events(delta, risk_start)
     lib = _build.library()
-    scratch = torch.empty(lib.repro_lipschitz_scratch_bytes(n, p),
-                          dtype=torch.uint8, device=x.device)
-    l2 = torch.empty(p, dtype=torch.float32, device=x.device)
-    l3 = torch.empty(p, dtype=torch.float32, device=x.device)
+    dev, st = x.device, _build.stream()
+    nbytes = lib.repro_lipschitz_scratch_bytes
+    tagged = _build.scratch("lipschitz", nbytes(n, p, 0), torch.uint8, dev,
+                            st)
+    partials = _build.scratch("lipschitz.partials", nbytes(n, p, 1),
+                              torch.uint8, dev, st)
+    # nonzero, and never one a word of this scratch already holds
+    _epoch = _epoch % 0x7FFFFFFF + 1
+    out = torch.empty(2, p, dtype=torch.float32, device=dev)
     _build.check(lib.repro_lipschitz(
-        x.data_ptr(), group_events.data_ptr(), n, p,
-        scratch.data_ptr(), l2.data_ptr(), l3.data_ptr(), _build.stream()),
-        "lipschitz")
+        x.data_ptr(), group_events.data_ptr(), n, p, tagged.data_ptr(),
+        partials.data_ptr(), _epoch, out[0].data_ptr(), out[1].data_ptr(),
+        st), "lipschitz")
     launches += 1
-    return l2, l3
+    return out[0], out[1]

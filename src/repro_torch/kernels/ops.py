@@ -6,8 +6,9 @@ dispatch counts in ``kernel_dispatch_total``, labelled with the kernel and
 the route taken (``cuda`` or ``plain``), so a fleet that silently ran the
 plain version would show it in the metrics. The wrappers' own ``launches``
 counts (``launch_counts()``) count the calls that launched their kernels
-and nothing else; a call may be several launches (``cox_coord`` and
-``revcumsum`` state theirs in ``KERNELS_PER_CALL``).
+and nothing else; a call may be several launches (``cox_coord``,
+``revcumsum``, ``cox_batch`` and ``lipschitz`` state theirs in
+``KERNELS_PER_CALL``: 2, 1 or 2 by layout, 1 and 1).
 
 The port has no block autotuner: each kernel picks its own launch shape.
 """
