@@ -15,14 +15,18 @@ Phases, each printed as it runs; any failed check raises:
      rows, with eta ~ 0.8 N(0, 1) and ~ U(-80, 80); lipschitz at n = 1,
      257, 65,537 and 262,144 and p = 1, 37 and 1,000, tie-free, in small
      groups, with a quarter of the rows in one group, with groups that
-     straddle segment edges and with every row in one group; the curve
-     panels with eta = +/-50 in the batch; revcumsum at (65,536, m) for
-     m = 1, 8, 31, 32, 33, 1,000, 1,001 and at ragged shapes; cox_batch at
-     n = 1, 255, 256, 257, 2,050 and 65,536 and p = 1, 31, 32, 33, 70 and
-     1,000, in float32 and bfloat16. Every kernel but the curves must give
-     the same bits twice, and one call of cox_coord, revcumsum, cox_batch
-     and lipschitz must launch its kernels (KERNELS_PER_CALL) and no other
-     device operation;
+     straddle segment edges and with every row in one group; both curve
+     panels at b = 1, 37, 4,096 and 4,097 and g = 1, 3, 4, 5, 127, 128,
+     129 and 257 (the launch plan's edges: 16-byte and scalar rows, tails)
+     with eta = +/-50 in the batch, a baseline off 16-byte alignment, and
+     stratified tables of 8 strata (staged in shared memory) and of
+     s = 512, g = 257 and s = 65, g = 128 (read through the read-only
+     path); revcumsum at (65,536, m) for m = 1, 8, 31, 32, 33, 1,000,
+     1,001 and at ragged shapes; cox_batch at n = 1, 255, 256, 257, 2,050
+     and 65,536 and p = 1, 31, 32, 33, 70 and 1,000, in float32 and
+     bfloat16. Every kernel must give the same bits twice, and one call of
+     each must launch its kernels (KERNELS_PER_CALL) and no other device
+     operation;
   3. fit: Appendix-C data at n = 262,144, p = 1,000 (rho 0.9, k 15, seed 0),
      ``fit_cd`` with cd_quad for 10 sweeps and cd_cubic for 3; the
      objective must not rise; cox_coord must be called p x sweeps times and
@@ -39,7 +43,9 @@ Phases, each printed as it runs; any failed check raises:
      against the closed form exp(-H0[strata] exp(clip(x beta)));
   6. timings of the first slice's kernels: each kernel's median time (CUDA
      events) and device time (torch.profiler) at the main path's shapes,
-     beside its bound and its plain version's; the host time of the
+     beside its bound and its plain version's (survival_curves at 1, 64
+     and 4,096 requests, each beside a device fill_ of the same panel, the
+     bytes it writes); the host time of the
      cox_coord wrapper's checks and counters; the device's idle share over
      one sweep of each method;
   7. streaming fit: n = 4,194,304 rows, p = 1,000, in 64 chunks of 65,536
@@ -53,8 +59,9 @@ Phases, each printed as it runs; any failed check raises:
      chunks held as numpy arrays on the host against the same chunks on
      the card;
   8. timings of the second slice's kernels at the streaming and scoring
-     shapes, beside their bounds, their plain versions' and, for
-     revcumsum, torch.cumsum's.
+     shapes (the stratified curves as survival_curves in phase 6), beside
+     their bounds, their plain versions' and, for revcumsum,
+     torch.cumsum's.
 
 Kernel launch counts are zeroed just before each path (phases 3-5, 5b and
 7) and read just after it. The line before the last but one is one JSON
@@ -269,8 +276,11 @@ def device_ops(fn) -> list:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    torch.cuda.synchronize()
+    # the warm-up call in a window of its own: the first profiler window of
+    # a process has come back missing its first kernel
+    with profile(activities=[ProfilerActivity.CUDA]):
+        fn()
+        torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
@@ -287,14 +297,51 @@ def check_launch_shape(name: str, fn, want: int, prefix: str) -> None:
           f"{name}: a call issued {names}")
 
 
-def check_kernels(coord_ns=None, curve_bs=(1, 37, 4096),
-                  curve_gs=(128, 257)) -> dict:
+# the curve kernels' launch-plan edges: 16-byte and scalar rows, tails,
+# one row and a batch one past a power of two
+CURVE_BS = (1, 37, 4_096, 4_097)
+CURVE_GS = (1, 3, 4, 5, 127, 128, 129, 257)
+# (b, s, g) of stratified tables with more strata than a block stages in
+# shared memory (survival_curves.STAGED_STRATA): read by __ldg
+LARGE_TABLES = ((37, 512, 257), (4_096, 512, 257), (4_096, 65, 128))
+
+
+def curve_eta(b: int, gen):
+    """~3 N(0, 1) with +50 and -50 in the batch, past the +/-30 clip."""
+    import torch
+
+    eta = torch.randn(b, device="cuda", generator=gen) * 3.0
+    eta[0] = 50.0
+    if b > 1:
+        eta[1] = -50.0
+    return eta
+
+
+def check_curve(name: str, fn, want) -> float:
+    """``fn()`` against ``want`` within CURVES_ATOL, the same bits twice;
+    returns the largest absolute error."""
+    import torch
+
+    got = fn()
+    same = torch.equal(got, fn())
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    log(f"  {name}: max |err| {err:.3e} (tol {CURVES_ATOL:.0e}); same bits "
+        f"twice: {same}")
+    check(err <= CURVES_ATOL and bool(torch.isfinite(got).all()) and same,
+          name)
+    return err
+
+
+def check_kernels(coord_ns=None, curve_bs=CURVE_BS,
+                  curve_gs=CURVE_GS) -> dict:
     """Every kernel against its plain version on the card; returns the
     largest absolute error of each."""
     import torch
 
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels import cox_coord as coord_mod
+    from repro_torch.kernels import survival_curves as curves_mod
     from repro_torch.kernels.cox_coord import cox_coord
     from repro_torch.kernels.survival_curves import survival_curves
 
@@ -352,23 +399,32 @@ def check_kernels(coord_ns=None, curve_bs=(1, 37, 4096),
         lambda: cox_coord(eta, x, d, rs, group_events=groups),
         coord_mod.KERNELS_PER_CALL, "coord_")
 
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for b in curve_bs:
         for g in curve_gs:
-            eta = randn(b) * 3.0
-            eta[0] = 50.0
-            if b > 1:
-                eta[1] = -50.0
+            eta = curve_eta(b, gen)
             h0 = torch.cumsum(torch.rand(g, device="cuda", generator=gen),
                               0) * 0.05
-            got = survival_curves(eta, h0)
-            want = ref.survival_curves_ref(eta, h0)
-            torch.cuda.synchronize()
-            err = float((got - want).abs().max())
-            log(f"  survival_curves b={b} g={g}: max |err| {err:.3e} "
-                f"(tol {CURVES_ATOL:.0e})")
-            check(err <= CURVES_ATOL and bool(torch.isfinite(got).all()),
-                  f"survival_curves b={b} g={g}")
+            pl = curves_mod.plan(b, g, sms)
+            err = check_curve(
+                f"survival_curves b={b} g={g} (vec {pl.vec}, {pl.blocks} "
+                f"blocks, slab {pl.slab})",
+                lambda: survival_curves(eta, h0),
+                ref.survival_curves_ref(eta, h0))
             errs["survival_curves"] = max(errs["survival_curves"], err)
+    # a baseline off 16-byte alignment takes the scalar path at g = 128
+    h0 = (torch.cumsum(torch.rand(129, device="cuda", generator=gen), 0)
+          * 0.05)[1:]
+    eta = curve_eta(4_096, gen)
+    check(h0.data_ptr() % 16 != 0, "the offset baseline is aligned")
+    err = check_curve("survival_curves b=4096 g=128, baseline off 16 bytes",
+                      lambda: survival_curves(eta, h0),
+                      ref.survival_curves_ref(eta, h0))
+    errs["survival_curves"] = max(errs["survival_curves"], err)
+    h0 = h0.clone()
+    check_launch_shape("survival_curves b=4096 g=128",
+                       lambda: survival_curves(eta, h0),
+                       curves_mod.KERNELS_PER_CALL, "curves_panel")
     return errs
 
 
@@ -408,9 +464,12 @@ SCAN_SHAPES = tuple((STREAM_CHUNK, m) for m in (1, 8, 31, 32, 33, 1_000,
     (4_097, 255), (4_097, 33), (70_001, 8))
 
 
+STRAT_SHAPES = ((1, 1, 16),) + tuple(
+    (b, STRATA, g) for b in CURVE_BS for g in CURVE_GS) + LARGE_TABLES
+
+
 def check_stream_kernels(scan_shapes=SCAN_SHAPES,
-                         strat_shapes=((1, 1, 16), (37, 5, 257),
-                                       (4_096, STRATA, 128))) -> dict:
+                         strat_shapes=STRAT_SHAPES) -> dict:
     """revcumsum and the stratified curves against their plain versions on
     the card; returns the largest absolute error of each, in float32 and,
     for revcumsum, bfloat16."""
@@ -418,6 +477,7 @@ def check_stream_kernels(scan_shapes=SCAN_SHAPES,
 
     from repro_torch.kernels import ref
     from repro_torch.kernels import revcumsum as revcumsum_mod
+    from repro_torch.kernels import survival_curves as curves_mod
     from repro_torch.kernels.revcumsum import revcumsum
     from repro_torch.kernels.survival_curves import \
         survival_curves_stratified
@@ -463,25 +523,38 @@ def check_stream_kernels(scan_shapes=SCAN_SHAPES,
                        "rcs_vec")
     del panel, vector
 
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    routes = set()
     for b, s, g in strat_shapes:
-        eta = randn(b) * 3.0
-        eta[0] = 50.0
-        if b > 1:
-            eta[1] = -50.0
+        eta = curve_eta(b, gen)
         h0 = torch.cumsum(torch.rand(s, g, device="cuda", generator=gen),
                           1) * 0.05
         strata = torch.randint(0, s, (b,), device="cuda", generator=gen,
                                dtype=torch.int32)
-        got = survival_curves_stratified(eta, h0, strata)
-        want = ref.survival_curves_stratified_ref(eta, h0, strata)
-        torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        log(f"  survival_curves_stratified b={b} s={s} g={g}: max |err| "
-            f"{err:.3e} (tol {CURVES_ATOL:.0e})")
-        check(err <= CURVES_ATOL and bool(torch.isfinite(got).all()),
-              f"survival_curves_stratified b={b} s={s} g={g}")
+        pl = curves_mod.plan(b, g, sms, s, stratified=True)
+        route = "staged in shared memory" if pl.staged else "read by __ldg"
+        check(pl.staged == ((b, s, g) not in LARGE_TABLES),
+              f"survival_curves_stratified b={b} s={s} g={g}: {route}")
+        routes.add(route)
+        err = check_curve(
+            f"survival_curves_stratified b={b} s={s} g={g} (vec {pl.vec}, "
+            f"table {route})",
+            lambda: survival_curves_stratified(eta, h0, strata),
+            ref.survival_curves_stratified_ref(eta, h0, strata))
         errs["survival_curves_stratified"] = max(
             errs["survival_curves_stratified"], err)
+    check(len(routes) == 2, f"the stratified checks took only {routes}")
+    check_launch_shape(f"survival_curves_stratified b={b} s={s} g={g}",
+                       lambda: survival_curves_stratified(eta, h0, strata),
+                       curves_mod.KERNELS_PER_CALL, "curves_panel")
+    b, s, g = 4_096, STRATA, 128
+    eta = curve_eta(b, gen)
+    h0 = torch.rand(s, g, device="cuda", generator=gen)
+    strata = torch.randint(0, s, (b,), device="cuda", generator=gen,
+                           dtype=torch.int32)
+    check_launch_shape(f"survival_curves_stratified b={b} s={s} g={g}",
+                       lambda: survival_curves_stratified(eta, h0, strata),
+                       curves_mod.KERNELS_PER_CALL, "curves_panel")
     return {"float32": errs, "bfloat16": errs_bf16}
 
 
@@ -1003,6 +1076,32 @@ def _bound(nbytes: float, ops: float):
                                        else "operations")
 
 
+def curve_timings(name: str, kernel, plain, h0, stratified: bool) -> tuple:
+    """A curve kernel at every scored batch size: its CUDA-events median and
+    device time a call, beside a device fill_ of the same (b, g) panel (the
+    bytes the kernel writes, once) and the bound. Returns the largest
+    batch's (kernel, plain version, bound), as timings() keeps them."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    s, g = h0.shape if stratified else (1, h0.shape[0])
+    for b in BATCHES:
+        args = (torch.randn(b, device="cuda", generator=gen), h0)
+        if stratified:
+            args += (torch.randint(0, s, (b,), device="cuda", generator=gen,
+                                   dtype=torch.int32),)
+        ms, dev = kernel_ms(lambda i: kernel(*args), reps=200)
+        panel = torch.empty(b, g, device="cuda")
+        fill = device_ms(lambda i: panel.fill_(0.5), reps=200)[0]
+        bound = _bound(4.0 * ((2 if stratified else 1) * b + s * g + b * g),
+                       3.0 * b * g)
+        log(f"  {name} b={b}: median {ms * 1e3:.2f} us a call by CUDA "
+            f"events, device time {dev * 1e3:.3f} us; device fill_ of the "
+            f"({b}, {g}) panel {fill * 1e3:.3f} us; bound "
+            f"{bound[0] * 1e3:.3f} us by {bound[1]}")
+    return (ms, dev), kernel_ms(lambda i: plain(*args), reps=200), bound
+
+
 def wrapper_overhead_us(data, groups, reps: int = 2000) -> float:
     """Host microseconds a cox_coord call spends in its wrapper's argument
     checks, library lookup and dispatch counter, without launching."""
@@ -1062,13 +1161,9 @@ def timings(state) -> dict:
     log(f"  lipschitz with the last quarter of the rows in one tie group: "
         f"{q_ms:.4f} ms a call by CUDA events; making the fit's group "
         f"counts (ops.group_events), once per fit: {d_ms:.4f} ms")
-    h0 = engine._h0[0]
-    b, g = BATCHES[-1], h0.shape[0]
-    e = torch.randn(b, device="cuda")
-    out["survival_curves"] = (
-        kernel_ms(lambda i: survival_curves(e, h0), reps=200),
-        kernel_ms(lambda i: ref.survival_curves_ref(e, h0), reps=200),
-        _bound(4.0 * (b + g + b * g), 3.0 * b * g))
+    out["survival_curves"] = curve_timings(
+        "survival_curves", survival_curves, ref.survival_curves_ref,
+        engine._h0[0], stratified=False)
     log(f"  cox_coord wrapper checks and counters: "
         f"{wrapper_overhead_us(data, groups):.2f} us of host time a call")
     for method in ("cd_quad", "cd_cubic"):
@@ -1093,7 +1188,7 @@ def timings(state) -> dict:
 def stream_timings(strat_h0) -> tuple:
     """(times as timings() gives them, library-call ms) of revcumsum and
     cox_batch at one streaming chunk's panel and of the stratified curves
-    at the largest scored batch."""
+    at every scored batch size (the largest kept)."""
     import torch
 
     from repro_torch.kernels import ref
@@ -1136,16 +1231,9 @@ def stream_timings(strat_h0) -> tuple:
         kernel_ms(lambda i: ref.cox_batch_ref(x, *vecs), reps=20),
         _bound(4.0 * n * p + 20.0 * n + 8.0 * p, 11.0 * n * p))
     library["cox_batch"] = None
-    b, (s, g) = BATCHES[-1], strat_h0.shape
-    e = torch.randn(b, device="cuda", generator=gen)
-    st = torch.randint(0, s, (b,), device="cuda", generator=gen,
-                       dtype=torch.int32)
-    out["survival_curves_stratified"] = (
-        kernel_ms(lambda i: survival_curves_stratified(e, strat_h0, st),
-                  reps=200),
-        kernel_ms(lambda i: ref.survival_curves_stratified_ref(e, strat_h0,
-                                                               st), reps=200),
-        _bound(4.0 * (2 * b + s * g + b * g), 3.0 * b * g))
+    out["survival_curves_stratified"] = curve_timings(
+        "survival_curves_stratified", survival_curves_stratified,
+        ref.survival_curves_stratified_ref, strat_h0, stratified=True)
     library["survival_curves_stratified"] = None
     for name, ((ms, dev), (plain, plain_dev), (bound, by)) in out.items():
         lib_ms = library[name]

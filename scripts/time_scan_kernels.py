@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Time the scan kernels (cox_coord, revcumsum, cox_batch, lipschitz) of one
-checkout on a card.
+"""Time the scan kernels (cox_coord, revcumsum, cox_batch, lipschitz) and
+the survival-curve kernels of one checkout on a card.
 
     python3 scripts/time_scan_kernels.py [--src DIR] [--label NAME]
+                                         [--only NAME[,NAME...]]
 
 Imports ``repro_torch`` from DIR (default: this checkout's ``src``), builds
 its kernels, and prints one JSON line: for each kernel the device time a
@@ -23,8 +24,12 @@ path's shapes:
     the five vectors the chunk-mode fit forms, and lipschitz at
     (262,144, 1,000) float32 given the fit's group counts; beside each a
     read-only yardstick of the same panel, its column sum ``x.sum(0)``;
+  - survival_curves and survival_curves_stratified (8 strata) at the
+    scoring path's batches, b = 1, 64 and 4,096, g = 128, eta ~ 3 N(0, 1);
+    beside them a device ``fill_`` of the (b, 128) float32 panel, which
+    writes the bytes the kernels write;
 
-the SHA-256 of the revcumsum, cox_batch and lipschitz outputs (two
+the SHA-256 of the revcumsum, cox_batch, lipschitz and curve outputs (two
 checkouts whose digests agree gave the same bits); and the wall time (host
 clock, ended by a synchronise) of the paths they serve, cut in depth: a
 ``cd_quad`` sweep of ``fit_cd`` at n = 262,144, p = 1,000 (x ~ N(0, 1)
@@ -33,9 +38,11 @@ one-sweep fits after a warm-up fit, each fit's Lipschitz pass included),
 and one ``fit_stream`` epoch over 16 chunks of (65,536, 1,000) in global
 and in chunk mode (the median of 3 after a warm-up).
 
-To compare two versions on one card, run it on both in one command, in
-turns (parent, change, change, parent), the parent unpacked with
-``git archive`` into a directory that .gitignore lists.
+``--only`` keeps the kernel cases and digests whose names contain one of
+the given strings (``--only survival_curves,fill_``) and skips the wall
+times. To compare two versions on one card, run it on both in one
+command, in turns (parent, change, change, parent), the parent unpacked
+with ``git archive`` into a directory that .gitignore lists.
 """
 from __future__ import annotations
 
@@ -89,6 +96,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--src", default=str(ROOT / "src"))
     ap.add_argument("--label", default="this checkout")
+    ap.add_argument("--only", default="")
     args = ap.parse_args()
     sys.path.insert(0, args.src)
     sys.path.insert(1, str(ROOT))
@@ -103,6 +111,8 @@ def main() -> int:
     from repro_torch.kernels.cox_coord import cox_coord
     from repro_torch.kernels.lipschitz import lipschitz
     from repro_torch.kernels.revcumsum import revcumsum
+    from repro_torch.kernels.survival_curves import (
+        survival_curves, survival_curves_stratified)
 
     _build.library()
     gen = torch.Generator(device="cuda").manual_seed(5)
@@ -154,6 +164,28 @@ def main() -> int:
         "lipschitz (262144, 1000) float32, given D": (
             lambda i: lipschitz(tall, d, rs, group_events=tall_groups), 20),
         "x.sum(0) (262144, 1000) float32": (lambda i: tall.sum(0), 20)})
+    h0 = torch.cumsum(torch.rand(8, 128, device="cuda", generator=gen),
+                      1) * 0.05
+    curves_in = {}
+    for b in (1, 64, 4_096):
+        e = torch.randn(b, device="cuda", generator=gen) * 3.0
+        sb = torch.randint(0, 8, (b,), device="cuda", generator=gen,
+                           dtype=torch.int32)
+        fill = torch.empty(b, 128, device="cuda")
+        curves_in[b] = (e, sb)
+        cases.update({
+            f"survival_curves ({b}, 128)": (
+                lambda i, e=e: survival_curves(e, h0[0]), 400),
+            f"survival_curves_stratified ({b}, 128) s=8": (
+                lambda i, e=e, sb=sb: survival_curves_stratified(e, h0, sb),
+                400),
+            f"fill_ ({b}, 128) float32": (lambda i, f=fill: f.fill_(0.5),
+                                          400)})
+    only = [s for s in args.only.split(",") if s]
+
+    def kept(name):
+        return not only or any(s in name for s in only)
+    cases = {name: case for name, case in cases.items() if kept(name)}
     out = {"label": args.label, "torch": torch.__version__,
            "card": subprocess.run(
                ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -176,8 +208,17 @@ def main() -> int:
             cox_batch(panel16, *vecs)),
         "lipschitz (262144, 1000) float32": digest(
             lipschitz(tall, d, rs, group_events=tall_groups))}
+    for b, (e, sb) in curves_in.items():
+        out["sha256"][f"survival_curves ({b}, 128)"] = digest(
+            [survival_curves(e, h0[0])])
+        out["sha256"][f"survival_curves_stratified ({b}, 128) s=8"] = digest(
+            [survival_curves_stratified(e, h0, sb)])
+    out["sha256"] = {k: v for k, v in out["sha256"].items() if kept(k)}
     del xs, panel, panel16, narrow, mid, half, tall
     torch.cuda.empty_cache()
+    if only:
+        print(json.dumps(out), flush=True)
+        return 0
 
     from repro_torch.core import cox, solvers
     from repro_torch.core.streaming import Chunk

@@ -41,13 +41,14 @@ _SIGNATURES = {
     "repro_lipschitz_scratch_bytes": (ctypes.c_longlong, [_I, _I, _I]),
     "repro_lipschitz": (_I, [_P, _P, _I, _I, _P, _P, ctypes.c_uint, _P, _P,
                              _P]),
-    "repro_survival_curves": (_I, [_P, _P, _I, _I, _P, _P]),
+    "repro_survival_curves": (_I, [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P]),
     "repro_revcumsum_scratch_bytes": (ctypes.c_longlong, [_I, _I, _I]),
     "repro_revcumsum": (_I, [_P, _I, _I, _I, _P, ctypes.c_uint, _P, _P]),
     "repro_cox_batch_scratch_bytes": (ctypes.c_longlong, [_I, _I, _I, _I]),
     "repro_cox_batch": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P,
                              ctypes.c_uint, _P, _P, _P]),
-    "repro_survival_curves_stratified": (_I, [_P, _P, _P, _I, _I, _P, _P]),
+    "repro_survival_curves_stratified": (_I, [_P, _P, _P, _I, _I, _I, _I, _I,
+                                              _I, _I, _I, _P, _P]),
 }
 
 _LOCK = threading.Lock()

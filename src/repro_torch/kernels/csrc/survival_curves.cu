@@ -7,41 +7,24 @@
 // _survival_curves_jit), which forms the (b, g) outer product on the MXU and
 // fuses the exp so the panel reaches HBM once.
 //
-// What bounds it on an H100: bytes. The panel is written once (4 b g bytes)
-// for two exps and a multiply an element, and eta and H0 are read once.
-// One thread per element, a 2-D grid (rows of the batch on x, 128-wide
-// slices of the grid on y), neighbouring threads on neighbouring output
-// addresses, so every warp store is one 128-byte line and nothing but the
-// panel itself touches device memory in bulk.
+// The kernel is curves.cuh's panel with a single baseline (s = 1, no strata
+// read): each lane holds its columns of H0 in registers for every row it
+// writes. That header says what bounds it on an H100 (bytes, and at the
+// scoring sizes the launch) and how the design answers.
 #include <cuda_runtime.h>
 
-namespace {
-
-constexpr int kThreads = 128;
-
-__global__ void __launch_bounds__(kThreads)
-curves_kernel(const float* __restrict__ eta, const float* __restrict__ h0,
-              int g, float* __restrict__ out) {
-  const int row = blockIdx.x;
-  const int col = blockIdx.y * kThreads + threadIdx.x;
-  if (col >= g) return;
-  const float e = fminf(fmaxf(eta[row], -30.f), 30.f);
-  out[static_cast<size_t>(row) * g + col] = expf(-(expf(e) * h0[col]));
-}
-
-}  // namespace
+#include "curves.cuh"
 
 extern "C" {
 
-// out (b, g) row-major from eta (b,) and h0 (g,).
+// out (b, g) row-major from eta (b,) and h0 (g,), by the launch plan of
+// kernels/survival_curves.py::plan (blocks, slab, vec, tail).
 int repro_survival_curves(const float* eta, const float* h0, int b, int g,
-                          float* out, void* stream) {
-  if (b <= 0 || g <= 0 || g > 65535 * kThreads)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(b, (g + kThreads - 1) / kThreads);
-  curves_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      eta, h0, g, out);
-  return static_cast<int>(cudaGetLastError());
+                          int blocks, int slab, int vec, int tail, float* out,
+                          void* stream) {
+  return static_cast<int>(repro::curves::launch<false>(
+      eta, h0, nullptr, b, g, 1, blocks, slab, vec, tail, 0, out,
+      static_cast<cudaStream_t>(stream)));
 }
 
 }  // extern "C"

@@ -6,9 +6,10 @@ dispatch counts in ``kernel_dispatch_total``, labelled with the kernel and
 the route taken (``cuda`` or ``plain``), so a fleet that silently ran the
 plain version would show it in the metrics. The wrappers' own ``launches``
 counts (``launch_counts()``) count the calls that launched their kernels
-and nothing else; a call may be several launches (``cox_coord``,
-``revcumsum``, ``cox_batch`` and ``lipschitz`` state theirs in
-``KERNELS_PER_CALL``: 2, 1 or 2 by layout, 1 and 1).
+and nothing else; a call may be several launches (every wrapper module
+states its own in ``KERNELS_PER_CALL``: ``cox_coord`` 2, ``revcumsum`` 1
+or 2 by layout, ``cox_batch``, ``lipschitz`` and ``survival_curves``, both
+curve kernels, 1).
 
 The port has no block autotuner: each kernel picks its own launch shape.
 """
