@@ -13,8 +13,8 @@ Phases, each printed as it runs; any failed check raises:
      tile, a tile + 1, 262,144 and 1,048,577, on tie-free data, small tie
      groups, groups wider than a tile and one group of a quarter of the
      rows, with eta ~ 0.8 N(0, 1) and ~ U(-80, 80); lipschitz at n = 1,
-     257, 65,537 and 262,144 and p = 1, 37 and 1,000, tie-free, in small
-     groups, with a quarter of the rows in one group, with groups that
+     257, 65,537 and 262,144 and p = 1, 15 (the selection path's
+     finetune), 37 and 1,000, tie-free, in small groups, with a quarter of the rows in one group, with groups that
      straddle segment edges and with every row in one group; both curve
      panels at b = 1, 37, 4,096 and 4,097 and g = 1, 3, 4, 5, 127, 128,
      129 and 257 (the launch plan's edges: 16-byte and scalar rows, tails)
@@ -61,13 +61,52 @@ Phases, each printed as it runs; any failed check raises:
   8. timings of the second slice's kernels at the streaming and scoring
      shapes (the stratified curves as survival_curves in phase 6), beside
      their bounds, their plain versions' and, for revcumsum,
-     torch.cumsum's.
+     torch.cumsum's;
+  9. sparse selection at full width on phase 3's data (made again from the
+     same host arrays): ``beam_search`` at k = 15 with the reference's
+     defaults (beam width 5, 8 expansions, 4 score steps, 60 finetune
+     sweeps, lam2 1e-3), then ``omp_greedy`` at k = 15. Losses must not
+     rise with the support's size, the beam's last loss must be at most
+     OMP's (MONO_RTOL), every beta finite. Prints seconds per support size
+     (the ``beam.size`` spans), the support F1 of both against beta*, and
+     the launches. The counts are zeroed before each call and must be
+     exactly what the design implies (losses are plain
+     ``cox.loss_from_eta``, so they launch nothing):
+       cox_coord = sum over finetune calls of |support| x 60 sweeps;
+       lipschitz = the finetune calls, + 1 for beam_search's own L2;
+       revcumsum = beams scored x (2 x 4 steps + 1) x column blocks
+                   (``beam.column_blocks``: 4 of <= 256 columns here), and
+                   0 for omp_greedy.
+     The candidates and beams scored per size are read back from the
+     ``beam.size`` / ``beam.score`` spans. Then B1's device time at one
+     (262,144, block) panel beside its bound, and the device's idle share
+     over one scored beam and one finetune of 15 columns. With the counts
+     read, the kernel path against the plain path at a reduced depth
+     (k = 3, beam width 2, 4 expansions, 10 finetune sweeps): the same
+     support at every size, losses within SELECT_DTOL, and a second
+     kernel run repeating the bits;
+  10. regularization path and baselines at full width, same data:
+     ``l1_path`` at 6 lambdas (ratio 0.05) of 3 sweeps each, cut from the
+     reference's 30 x 80 (support_sizes[0] <= 1, the last >= the first,
+     losses finite); ``fit_newton`` with line search, 3 iterations,
+     lam2 = 1 (monotone); ``fit_working_newton`` quasi and prox, 2
+     iterations of 1 inner sweep; ``fit_gd``, 5 iterations (decreases);
+     ``fit_cd_penalized`` with SCAD and MCP, 2 sweeps at
+     lam1 = 0.4 lambda_max (monotone). Their launches must be exactly
+     cox_coord p x (6 x 3 + 2 x 2), lipschitz 6 + 1 + 2, nothing else. Each
+     step prints seconds per iteration and the device's idle share over
+     one iteration.
 
-Kernel launch counts are zeroed just before each path (phases 3-5, 5b and
-7) and read just after it. The line before the last but one is one JSON
-object with every kernel's numbers, then the card's name and power limit;
-the last is ``{"ok": true, "device": {...}}``. Without CUDA, or without the
-repository beside it, the script exits nonzero and prints no result.
+Phase 2 also holds revcumsum at the selection path's (262,144, 1,000) and
+(262,144, block) panels and lipschitz at (262,144, 15) against their plain
+versions. Kernel launch counts are zeroed just before each path (phases
+3-5, 5b, 7, 9's two calls and 10) and read just after it. The line before
+the last but two is one JSON object with the selection path's and phase
+10's launch counts, then one with every kernel's numbers (its
+``launches_by_path`` gives every path's count), then the card's name and
+power limit; the last is ``{"ok": true, "device": {...}}``. Without CUDA,
+or without the repository beside it, the script exits nonzero and prints
+no result.
 """
 from __future__ import annotations
 
@@ -124,6 +163,20 @@ STREAM_DTOL = 1e-3   # |objective, kernel - plain| over the compared epochs,
 STREAM_BETA_RTOL = 1e-3  # max |beta, kernel - plain| / max |beta|: the
                      # paths differ in the local scans' and the panel
                      # sums' order, and each step is (g, h)'s ratio
+
+# phase 9: beam_search and omp_greedy with the reference's defaults
+SELECT = dict(k=K, beam_width=5, n_expand=8, lam2=1e-3, score_steps=4,
+              finetune_sweeps=60)
+# the kernel path against the plain path, at a reduced depth
+SELECT_COMPARE = dict(k=3, beam_width=2, n_expand=4, lam2=1e-3,
+                      score_steps=4, finetune_sweeps=10)
+SELECT_DTOL = FIT_DTOL  # |loss, kernel - plain| at each size, in units of
+                     # the plain path's loss decrease at that size: both
+                     # finetune the same support from beta = 0 through the
+                     # same float32 steps, whose (g, L2) agree as in phase 3
+# phase 10: the path, cut from the reference's 30 lambdas x 80 sweeps
+PATH_LAMBDAS, PATH_RATIO, PATH_SWEEPS = 6, 0.05, 3
+NEWTON_ITERS, WORKING_ITERS, GD_ITERS, PENALIZED_SWEEPS = 3, 2, 5, 2
 
 # the TPU kernel each CUDA kernel replaces (its pallas_call), and the path
 # whose launch count the kernels line reports
@@ -464,6 +517,54 @@ SCAN_SHAPES = tuple((STREAM_CHUNK, m) for m in (1, 8, 31, 32, 33, 1_000,
     (4_097, 255), (4_097, 33), (70_001, 8))
 
 
+def check_scan(x) -> float:
+    """revcumsum of ``x`` against its plain version within REVCUMSUM_TOL,
+    the same bits twice; returns the largest absolute error."""
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.revcumsum import revcumsum
+
+    shape, dtype = tuple(x.shape), str(x.dtype).removeprefix("torch.")
+    got = revcumsum(x)
+    same = torch.equal(got, revcumsum(x))
+    want = ref.revcumsum_ref(x)
+    torch.cuda.synchronize()
+    err = (got.double() - want.double()).abs()
+    rel = float((err / _suffix_abs(x).clamp_min(1e-30)).max())
+    check(got.dtype == x.dtype and got.shape == x.shape
+          and bool(torch.isfinite(got).all()),
+          f"revcumsum {shape} {dtype}: output")
+    log(f"  revcumsum {shape} {dtype}: max |err| {float(err.max()):.3e},"
+        f" max |err|/suffix|x| {rel:.3e} (tol "
+        f"{REVCUMSUM_TOL[dtype]:.0e}); same bits twice: {same}")
+    check(rel <= REVCUMSUM_TOL[dtype] and same, f"revcumsum {shape} {dtype}")
+    return float(err.max())
+
+
+def selection_scan_shapes():
+    """The (n, m) panels the selection path scans: the full width and
+    every distinct column block of ``score_candidates``."""
+    from repro_torch.core import beam
+
+    widths = {cols.stop - cols.start for cols in beam.column_blocks(N, P, 4)}
+    return ((N, P),) + tuple((N, m) for m in sorted(widths, reverse=True))
+
+
+def check_selection_scans(shapes) -> float:
+    """revcumsum at the selection path's float32 panels; returns the
+    largest absolute error."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    worst = 0.0
+    for shape in shapes:
+        worst = max(worst, check_scan(torch.randn(*shape, device="cuda",
+                                                  generator=gen)))
+        torch.cuda.empty_cache()
+    return worst
+
+
 STRAT_SHAPES = ((1, 1, 16),) + tuple(
     (b, STRATA, g) for b in CURVE_BS for g in CURVE_GS) + LARGE_TABLES
 
@@ -492,24 +593,9 @@ def check_stream_kernels(scan_shapes=SCAN_SHAPES,
     for shape in scan_shapes:
         x32 = randn(*shape)
         for dtype in ("float32", "bfloat16"):
-            x = x32.to(getattr(torch, dtype))
-            got = revcumsum(x)
-            same = torch.equal(got, revcumsum(x))
-            want = ref.revcumsum_ref(x)
-            torch.cuda.synchronize()
-            err = (got.double() - want.double()).abs()
-            rel = float((err / _suffix_abs(x).clamp_min(1e-30)).max())
-            check(got.dtype == x.dtype and got.shape == x.shape
-                  and bool(torch.isfinite(got).all()),
-                  f"revcumsum {shape} {dtype}: output")
-            log(f"  revcumsum {shape} {dtype}: max |err| {float(err.max()):.3e},"
-                f" max |err|/suffix|x| {rel:.3e} (tol "
-                f"{REVCUMSUM_TOL[dtype]:.0e}); same bits twice: {same}")
-            check(rel <= REVCUMSUM_TOL[dtype] and same,
-                  f"revcumsum {shape} {dtype}")
             into = errs if dtype == "float32" else errs_bf16
-            into["revcumsum"] = max(into["revcumsum"], float(err.max()))
-            del got, want, err, x
+            into["revcumsum"] = max(into["revcumsum"], check_scan(
+                x32.to(getattr(torch, dtype))))
         del x32
         torch.cuda.empty_cache()
     panel = randn(STREAM_CHUNK, P)
@@ -617,7 +703,7 @@ def check_cox_batch(ns=BATCH_NS, ps=BATCH_PS) -> dict:
     return errs
 
 
-def check_lipschitz(ns=(1, 257, 65_537, N), ps=(1, 37, P)) -> float:
+def check_lipschitz(ns=(1, 257, 65_537, N), ps=(1, 15, 37, P)) -> float:
     """lipschitz against its plain version on the card at every (n, p) of
     ``ns`` x ``ps`` and every tie layout of LIP_TIES: the same bits twice
     and with or without the fit's group counts; then one call's launch
@@ -1247,6 +1333,300 @@ def stream_timings(strat_h0) -> tuple:
 
 
 # ---------------------------------------------------------------------------
+# Phases 9-10: sparse selection, the regularization path and the baselines
+# ---------------------------------------------------------------------------
+
+def _timed(fn):
+    """(fn(), seconds), the device synchronised at both ends."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _launched(fn):
+    """(fn(), seconds, launches): the counts zeroed just before the call
+    and read just after it."""
+    from repro_torch.kernels import ops
+
+    ops.reset_launch_counts()
+    out, seconds = _timed(fn)
+    return out, seconds, ops.launch_counts()
+
+
+def _check_counts(what: str, got: dict, want: dict) -> None:
+    """Every kernel's launches exactly as ``want`` says (0 where it says
+    nothing)."""
+    want = {name: want.get(name, 0) for name in got}
+    log(f"  {what} launches: {got} (expected {want})")
+    check(got == want, f"{what}: launches {got}, expected {want}")
+
+
+def _selection_result(what: str, res, k: int, beta_star,
+                      seconds: str) -> float:
+    """Checks a BeamResult (k sizes, losses not rising, betas finite) and
+    logs it with ``seconds``; returns its support F1 against beta*."""
+    import numpy as np
+
+    from repro_torch.survival import metrics
+
+    losses = np.asarray(res.losses)
+    check(len(res.supports) == k and [len(s) for s in res.supports]
+          == list(range(1, k + 1)), f"{what}: supports {res.supports}")
+    check(bool(np.all(np.isfinite(losses)))
+          and all(bool(np.all(np.isfinite(b))) for b in res.betas),
+          f"{what}: a loss or beta is not finite")
+    check(bool(np.all(np.diff(losses) <= MONO_RTOL * np.abs(losses[:-1]))),
+          f"{what}: a loss rose with the support's size: {losses.tolist()}")
+    _, _, f1 = metrics.support_f1(beta_star, res.betas[-1])
+    log(f"  {what}: support {res.supports[-1].tolist()}, losses "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}, support F1 against beta* "
+        f"{f1:.3f}; {seconds}")
+    return f1
+
+
+def _beam_spans(path: Path) -> tuple:
+    """(seconds, candidates, beams scored) per support size, from the
+    ``beam.size`` and ``beam.score`` spans that ``beam_search`` recorded."""
+    from repro_torch.obs import events
+
+    spans = [r for r in events.read_jsonl(str(path)) if r["kind"] == "span"]
+    sizes = sorted((r for r in spans if r["name"] == "beam.size"),
+                   key=lambda r: r["attrs"]["size"])
+    scores = [r["attrs"]["n_beams"] for r in spans
+              if r["name"] == "beam.score"]
+    return ([r["dur_s"] for r in sizes],
+            [r["attrs"]["n_candidates"] for r in sizes], scores)
+
+
+def compare_selection(data) -> None:
+    """The selection path's kernel route against its plain route at
+    SELECT_COMPARE's depth. Run after the path's counts are read: these
+    launches only compare."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import beam, cox
+
+    log(f"selection: kernel path against the plain path "
+        f"({SELECT_COMPARE})")
+    kern, again, plain = (beam.beam_search(data, use_kernel=use,
+                                           **SELECT_COMPARE)
+                          for use in (True, True, False))
+    same = (kern.losses == again.losses and all(
+        np.array_equal(a, b) for a, b in zip(kern.betas, again.betas)))
+    check(same, "selection: the kernel path did not repeat its bits")
+    zero = torch.zeros(data.n, device="cuda")
+    prev = float(cox.loss_from_eta(data, zero))
+    for size, (ks, ps, kl, pl) in enumerate(zip(
+            kern.supports, plain.supports, kern.losses, plain.losses), 1):
+        decrease = prev - pl
+        log(f"  size {size}: kernel support {ks.tolist()}, plain "
+            f"{ps.tolist()}; loss {kl:.4f} against {pl:.4f}, |diff| "
+            f"{abs(kl - pl):.4f} = {abs(kl - pl) / decrease:.3e} of the "
+            f"size's decrease {decrease:.4f} (tol {SELECT_DTOL:.0e}); "
+            f"a second kernel run repeats the bits: {same}")
+        check(np.array_equal(ks, ps), f"selection size {size}: supports "
+              f"differ")
+        check(decrease > 0 and abs(kl - pl) <= SELECT_DTOL * decrease,
+              f"selection size {size}: losses differ")
+        prev = pl
+
+
+def selection_phase(data, beta_star) -> dict:
+    """Phase 9; returns the launches of both calls, the seconds per
+    support size and the device's idle share over one scored beam and one
+    finetune."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import beam
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.revcumsum import revcumsum
+    from repro_torch.obs import trace
+
+    log("phase 9: sparse selection")
+    blocks = beam.column_blocks(data.n, data.p, data.x.element_size())
+    log(f"  beam_search {SELECT}; score_candidates walks "
+        f"{len(blocks)} column blocks of "
+        f"{[b.stop - b.start for b in blocks]} columns")
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        spans = Path(tmp) / "trace.jsonl"
+        trace.configure(str(spans))
+        try:
+            res, seconds, launches = _launched(
+                lambda: beam.beam_search(data, **SELECT))
+        finally:
+            trace.configure(None)
+        size_s, candidates, scored = _beam_spans(spans)
+    k, sweeps = SELECT["k"], SELECT["finetune_sweeps"]
+    check(len(size_s) == len(candidates) == len(scored) == k,
+          f"beam spans: {len(size_s)} sizes, {len(scored)} scores")
+    log(f"  beam_search: {seconds:.2f} s; candidates per size {candidates}, "
+        f"beams scored per size {scored}")
+    f1 = {"beam_search": _selection_result(
+        "beam_search", res, k, beta_star, "seconds per support size "
+        + ", ".join(f"{s:.2f}" for s in size_s))}
+    _check_counts("beam_search", launches, {
+        "cox_coord": sweeps * sum(size * c for size, c in
+                                  enumerate(candidates, 1)),
+        "lipschitz": sum(candidates) + 1,
+        "revcumsum": sum(scored) * (2 * SELECT["score_steps"] + 1)
+        * len(blocks)})
+    out = {"launches": {"beam_search": launches}, "size_s": size_s}
+
+    omp, omp_s, launches = _launched(lambda: beam.omp_greedy(
+        data, k, lam2=SELECT["lam2"], finetune_sweeps=sweeps))
+    f1["omp_greedy"] = _selection_result(
+        "omp_greedy", omp, k, beta_star, f"{omp_s:.2f} s for {k} sizes, "
+        f"{omp_s / k:.3f} s a size on average")
+    _check_counts("omp_greedy", launches, {
+        "cox_coord": sweeps * k * (k + 1) // 2, "lipschitz": k})
+    out["launches"]["omp_greedy"] = launches
+    check(res.losses[-1] <= omp.losses[-1]
+          + MONO_RTOL * abs(omp.losses[-1]),
+          f"beam's loss {res.losses[-1]} above OMP's {omp.losses[-1]}")
+    log(f"  last loss: beam {res.losses[-1]:.4f}, OMP {omp.losses[-1]:.4f};"
+        f" support F1 against beta*: {f1}")
+    out["f1"] = f1
+
+    # B1 at one column block of the selection path, beside its bound
+    n, m = data.n, blocks[0].stop - blocks[0].start
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    panel = torch.randn(n, m, device="cuda", generator=gen)
+    ms, dev = kernel_ms(lambda i: revcumsum(panel), reps=50)
+    plain = kernel_ms(lambda i: ref.revcumsum_ref(panel), reps=10)
+    library = events_ms(lambda i: torch.cumsum(panel, 0), reps=10)
+    bound, by = _bound(8.0 * n * m, 1.0 * n * m)
+    log(f"  revcumsum at ({n}, {m}): median {ms * 1e3:.2f} us by CUDA "
+        f"events, device time {dev * 1e3:.2f} us; plain version "
+        f"{plain[0] * 1e3:.2f} us, torch.cumsum {library * 1e3:.2f} us; "
+        f"bound {bound * 1e3:.2f} us by {by} -> device time at "
+        f"{bound / dev:.1%} of bound")
+    out["revcumsum_at_block"] = {"shape": [n, m], "ms": ms, "device_ms": dev,
+                                 "plain_ms": plain[0], "library_ms": library,
+                                 "bound_ms": bound, "bound_by": by}
+    del panel
+
+    # where a support size's time goes: one scored beam and one finetune
+    # of a k-column support, each profiled for the device's idle share
+    groups = ops.group_events(data.delta, data.risk_start)
+    l2c, _ = ops.lipschitz_constants(data.x, data.delta, data.risk_start,
+                                     groups)
+    mask = np.zeros(data.p, dtype=bool)
+    mask[res.supports[-2]] = True
+    eta = torch.zeros(data.n, device="cuda")
+    support = res.supports[-1].astype(np.int32)
+    parts = {
+        "score_candidates (one beam)": lambda i: beam.score_candidates(
+            data, eta, l2c, SELECT["lam2"], mask,
+            steps=SELECT["score_steps"]),
+        f"finetune (one support of {k})": lambda i: beam.finetune(
+            data, support, np.ones(k, np.float32), SELECT["lam2"], k,
+            n_sweeps=sweeps, groups=groups)}
+    out["idle"] = {}
+    for what, fn in parts.items():
+        busy, wall = device_ms(fn, reps=1)
+        out["idle"][what] = 1 - busy / wall
+        log(f"  {what}: wall {wall / 1e3:.4f} s, device busy "
+            f"{busy / 1e3:.4f} s -> device idle {1 - busy / wall:.1%}")
+    compare_selection(data)
+    return out
+
+
+def _per_iteration(name: str, fit, iters: int, seconds: float) -> dict:
+    """Seconds per iteration of a run of ``iters``, and the device's idle
+    share over one more iteration (``fit(1)``), profiled."""
+    busy, wall = device_ms(lambda i: fit(1), reps=1)
+    idle = 1 - busy / wall
+    log(f"  {name}: {seconds / iters:.4f} s per iteration over {iters}; "
+        f"one iteration: wall {wall / 1e3:.4f} s, device busy "
+        f"{busy / 1e3:.4f} s -> device idle {idle:.1%}")
+    return {"s_per_iter": seconds / iters, "idle": idle}
+
+
+def _monotone(what: str, objective, strict_end: bool = False) -> None:
+    import torch
+
+    obj = objective.cpu().double()
+    log(f"  {what}: objective {obj.tolist()}")
+    check(bool(torch.isfinite(obj).all()), f"{what}: objective not finite")
+    check(bool((obj[1:] - obj[:-1] <= MONO_RTOL * obj[:-1].abs()).all()),
+          f"{what}: objective rose")
+    if strict_end:
+        check(bool(obj[-1] < obj[0]), f"{what}: objective did not decrease")
+
+
+def baselines_phase(data, lam1: float, lam2: float) -> dict:
+    """Phase 10; returns the launches and, per step, seconds per iteration
+    and the device's idle share."""
+    import numpy as np
+
+    from repro_torch.core import path, solvers
+    from repro_torch.kernels import ops
+
+    log("phase 10: regularization path and baselines")
+    lmax = path.lambda_max(data)
+    pen_lam1 = 0.4 * lmax
+    fits = {
+        "l1_path": (PATH_LAMBDAS, lambda it: path.l1_path(
+            data, n_lambdas=it, lambda_min_ratio=PATH_RATIO,
+            n_iters=PATH_SWEEPS)),
+        "fit_newton (line search)": (NEWTON_ITERS, lambda it:
+                                     solvers.fit_newton(
+                                         data, lam2=1.0, n_iters=it,
+                                         line_search=True)),
+        **{f"fit_working_newton ({v})": (WORKING_ITERS, lambda it, v=v:
+                                         solvers.fit_working_newton(
+                                             data, lam1, lam2, n_iters=it,
+                                             variant=v, inner_sweeps=1))
+           for v in ("quasi", "prox")},
+        "fit_gd": (GD_ITERS, lambda it: solvers.fit_gd(
+            data, lam1, lam2, n_iters=it)),
+        **{f"fit_cd_penalized ({pen})": (PENALIZED_SWEEPS, lambda it,
+                                         pen=pen: solvers.fit_cd_penalized(
+                                             data, penalty=pen,
+                                             lam1=pen_lam1, n_iters=it))
+           for pen in ("scad", "mcp")},
+    }
+    log(f"  lambda_max {lmax:.4f}; lam1 {lam1:.4f}, lam2 {lam2} for the "
+        f"working-Newton and GD fits, lam1 {pen_lam1:.4f} for SCAD / MCP")
+    ops.reset_launch_counts()
+    results, seconds = {}, {}
+    for name, (iters, fit) in fits.items():
+        results[name], seconds[name] = _timed(lambda: fit(iters))
+    launches = ops.launch_counts()
+    pr = results["l1_path"]
+    log(f"  l1_path: lambdas {np.round(pr.lambdas, 4).tolist()}, support "
+        f"sizes {pr.support_sizes.tolist()}, losses {pr.losses.tolist()}")
+    check(pr.support_sizes[0] <= 1 and pr.support_sizes[-1]
+          >= pr.support_sizes[0] and bool(np.all(np.isfinite(pr.losses))),
+          "l1_path: supports or losses")
+    _monotone("fit_newton (line search)",
+              results["fit_newton (line search)"].objective)
+    for v in ("quasi", "prox"):
+        name = f"fit_working_newton ({v})"
+        obj = results[name].objective.cpu().double()
+        log(f"  {name}: objective {obj.tolist()}")
+        check(bool(obj.isfinite().all()), f"{name}: objective not finite")
+    _monotone("fit_gd", results["fit_gd"].objective, strict_end=True)
+    for pen in ("scad", "mcp"):
+        _monotone(f"fit_cd_penalized ({pen})",
+                  results[f"fit_cd_penalized ({pen})"].objective)
+    _check_counts("path and baselines", launches, {
+        "cox_coord": data.p * (PATH_LAMBDAS * PATH_SWEEPS
+                               + 2 * PENALIZED_SWEEPS),
+        "lipschitz": PATH_LAMBDAS + 1 + 2})
+    steps = {name: _per_iteration(name, fit, iters, seconds[name])
+             for name, (iters, fit) in fits.items()}
+    steps["l1_path"]["unit"] = f"lambda of {PATH_SWEEPS} sweeps"
+    return {"launches": launches, "steps": steps}
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
@@ -1261,6 +1641,7 @@ def main() -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    from repro_torch import convert
     from repro_torch.data.synthetic import (SyntheticSpec,
                                             make_correlated_survival)
     from repro_torch.kernels import _build, ops
@@ -1286,9 +1667,11 @@ def main() -> int:
     errs["cox_batch"] = batch_errs["float32"]
     errs_bf16["cox_batch"] = batch_errs["bfloat16"]
     errs["lipschitz"] = check_lipschitz()
+    errs["revcumsum"] = max(errs["revcumsum"], check_selection_scans(
+        selection_scan_shapes()))
 
     t0 = time.perf_counter()
-    x, t, delta, _ = make_correlated_survival(
+    x, t, delta, beta_star = make_correlated_survival(
         SyntheticSpec(n=N, p=P, k=K, rho=RHO, seed=SEED))
     log(f"  Appendix-C data made in {time.perf_counter() - t0:.1f} s")
     launches = {}
@@ -1315,7 +1698,8 @@ def main() -> int:
     log(f"  seconds per CD sweep: cd_quad {state['quad_sweep_s']:.4f}, "
         f"cd_cubic {state['cubic_sweep_s']:.4f}; seconds per scored batch: "
         + ", ".join(f"b={b} {s:.6f}" for b, s in state["batch_s"].items()))
-    del state, x, t, delta
+    lam1, lam2 = state["lam1"], state["lam2"]
+    del state
     torch.cuda.empty_cache()
 
     stream = streaming_phase()
@@ -1331,6 +1715,14 @@ def main() -> int:
                     for m, s in stream["epoch_s"].items())
         + "; seconds per scored stratified batch: "
         + ", ".join(f"b={b} {s:.6f}" for b, s in strat["batch_s"].items()))
+    torch.cuda.empty_cache()
+
+    data = convert.cox_data_from_numpy(x, t, delta, device="cuda")
+    select = selection_phase(data, beta_star)
+    launches["beam search"] = select["launches"]["beam_search"]
+    launches["omp"] = select["launches"]["omp_greedy"]
+    base = baselines_phase(data, lam1, lam2)
+    launches["path and baselines"] = base["launches"]
     log(f"  total {time.perf_counter() - t_start:.1f} s")
 
     kernels = []
@@ -1344,10 +1736,22 @@ def main() -> int:
             "max_abs_err": errs[name], "ms": ms, "plain_ms": plain,
             "bound_ms": bound, "bound_by": by, "library_ms": library[name],
             "device_ms": dev, "path": PATH_OF[name],
+            "launches_by_path": {path: counts[name] for path, counts
+                                 in launches.items() if counts[name]},
             **({"max_abs_err_bf16": errs_bf16[name]}
                if name in errs_bf16 else {})})
     check(sorted(k["name"] for k in kernels) == sorted(REPLACES),
           "the kernels line lacks a kernel")
+    print(json.dumps({
+        "selection_launches": {"beam_search": launches["beam search"],
+                               "omp_greedy": launches["omp"],
+                               "path_and_baselines":
+                                   launches["path and baselines"]},
+        "beam_seconds_per_size": select["size_s"],
+        "beam_idle": select["idle"],
+        "support_f1": select["f1"],
+        "revcumsum_at_block": select["revcumsum_at_block"],
+        "baselines": base["steps"]}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

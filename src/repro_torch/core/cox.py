@@ -73,6 +73,12 @@ def prepare(x, t, delta, device="cuda") -> CoxData:
                    risk_start=risk_start, tie_end=tie_end)
 
 
+def with_x(data: CoxData, x: Tensor) -> CoxData:
+    """``data`` with the time-sorted feature panel ``x`` (n, p') in place of
+    its own, and the contiguous transpose that CD walks made from it."""
+    return dataclasses.replace(data, x=x, xT=x.T.contiguous())
+
+
 def revcumsum(v: Tensor, axis: int = 0) -> Tensor:
     """Reverse (suffix) cumulative sum along ``axis``."""
     return torch.flip(torch.cumsum(torch.flip(v, (axis,)), axis), (axis,))
