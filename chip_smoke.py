@@ -96,13 +96,37 @@ Phases, each printed as it runs; any failed check raises:
      cox_coord p x (6 x 3 + 2 x 2), lipschitz 6 + 1 + 2, nothing else. Each
      step prints seconds per iteration and the device's idle share over
      one iteration.
+  11. the serving front end, run after phase 5b on the artifacts of
+     phases 4 and 5b, with RiskService's defaults (max_batch 64, retries
+     2, down_after 3) and curves returned: the phase-4 artifact saved and
+     loaded by ``ModelRegistry.load(block=False)`` (sha256 verified, the
+     bucket ladder 1..64 warmed on the registry's thread), swapped live;
+     4,096 requests from 4 submitter threads (25 % HIGH), every one ``ok``
+     and equal to direct ``engine.score`` calls of its row in batches of
+     64 (SERVE_RISK_RTOL, CURVES_ATOL, medians exact), with
+     survival_curves launched exactly the warmed buckets plus the batches
+     plus those calls; a closed loop
+     (4 submitters, 64 requests in flight each, 3 s) for the capacity,
+     then benchmarks/bench_overload.py's open loop at 0.5x and 2x of it
+     (seeded Poisson arrivals, 25 % HIGH, LOW deadline 0.25 s, max_queue
+     8 x 64, 3 s each) with no silent loss; a rollout of the artifact
+     refit with beta x 0.95 halfway through 3 s at 0.4x (nothing dropped,
+     one engine swap, generation 2, later requests on the new model); a
+     ChaosEngine around the live engine (fail_next(2) recovered by 2
+     retries, fail_next(3) one batch of error responses then SERVING
+     again, a bit-flipped artifact FAILED while the live engine serves);
+     1 s of closed-loop serving under ``obs.profile.maybe_profile``, its
+     trace's device idle share. Then the 8-strata artifact's 4,096
+     requests through survival_curves_stratified, counted the same way.
+     Its launches are the kernels line's "serve" and "serve_stratified".
 
 Phase 2 also holds revcumsum at the selection path's (262,144, 1,000) and
 (262,144, block) panels and lipschitz at (262,144, 15) against their plain
 versions. Kernel launch counts are zeroed just before each path (phases
-3-5, 5b, 7, 9's two calls and 10) and read just after it. The line before
-the last but two is one JSON object with the selection path's and phase
-10's launch counts, then one with every kernel's numbers (its
+3-5, 5b, 11's two services, 7, 9's two calls and 10) and read just after
+it. The line before the last but three is one JSON object with phase 11's
+numbers, then one with the selection path's and phase 10's launch counts,
+then one with every kernel's numbers (its
 ``launches_by_path`` gives every path's count), then the card's name and
 power limit; the last is ``{"ok": true, "device": {...}}``. Without CUDA,
 or without the repository beside it, the script exits nonzero and prints
@@ -177,6 +201,18 @@ SELECT_DTOL = FIT_DTOL  # |loss, kernel - plain| at each size, in units of
 # phase 10: the path, cut from the reference's 30 lambdas x 80 sweeps
 PATH_LAMBDAS, PATH_RATIO, PATH_SWEEPS = 6, 0.05, 3
 NEWTON_ITERS, WORKING_ITERS, GD_ITERS, PENALIZED_SWEEPS = 3, 2, 5, 2
+# phase 11: the service with RiskService's defaults (max_batch 64, retries
+# 2, down_after 3), and benchmarks/bench_overload.py's traffic
+SERVE_REQUESTS, SERVE_THREADS, SERVE_HIGH = 4_096, 4, 0.25
+SERVE_SECONDS = 3.0      # the closed loop, each open-loop load, the swap
+SERVE_LOADS = (0.5, 2.0)  # open-loop multiples of the closed-loop rate
+SERVE_SWAP_LOAD = 0.4
+SERVE_LOW_DEADLINE = 0.25
+SERVE_PROFILE_SECONDS = 1.0
+CHAOS_BATCH = 16
+SERVE_RISK_RTOL = 1e-5   # a served risk against a direct engine call: the
+                         # same float32 exp(x beta), x @ beta at another
+                         # bucket; curves within CURVES_ATOL, medians equal
 
 # the TPU kernel each CUDA kernel replaces (its pallas_call), and the path
 # whose launch count the kernels line reports
@@ -969,7 +1005,529 @@ def stratified_scoring(x, t, delta, beta) -> dict:
             f"(strata={STRATA}, sparse={engine.use_sparse})")
     check(ops.launch_counts()["survival_curves"] == 0,
           "a stratified model launched the single-baseline kernel")
-    return {"batch_s": batch_s, "h0": engine._h0}
+    return {"batch_s": batch_s, "h0": engine._h0, "model": model}
+
+
+# ---------------------------------------------------------------------------
+# Phase 11: the serving front end on the card
+# ---------------------------------------------------------------------------
+
+def _percentile_ms(latencies, q: float) -> float:
+    import numpy as np
+
+    return float(np.percentile(latencies, q) * 1e3) if len(latencies) else 0.0
+
+
+def _in_threads(fn, seconds: float) -> float:
+    """``fn(slot)`` on SERVE_THREADS threads at once; raises if one raised
+    or outlived ``seconds``. Returns the seconds from start to join."""
+    import threading
+
+    errors = []
+
+    def run(slot):
+        try:
+            fn(slot)
+        except Exception as e:   # raised below, on the caller's thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(s,))
+               for s in range(SERVE_THREADS)]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(seconds)
+    elapsed = time.perf_counter() - t0
+    check(not errors and not any(th.is_alive() for th in threads),
+          f"threads failed: {errors}")
+    return elapsed
+
+
+def _submit_rows(svc, x, n_total: int, seed: int, strata: int = 0) -> list:
+    """SERVE_THREADS submitter threads push ``n_total`` rows of x drawn
+    from seeded generators, SERVE_HIGH of them HIGH, no deadlines; returns
+    (rid, row, stratum) per request. With ``strata`` each request carries a
+    stratum drawn from the same generator."""
+    import numpy as np
+
+    from repro_torch.serving import Priority
+
+    per = n_total // SERVE_THREADS
+    out = [[] for _ in range(SERVE_THREADS)]
+
+    def produce(slot):
+        rng = np.random.default_rng(seed + slot)
+        rows = rng.integers(0, x.shape[0], per)
+        high = rng.random(per) < SERVE_HIGH
+        sts = rng.integers(0, max(strata, 1), per)
+        for i, h, s in zip(rows, high, sts):
+            prio = Priority.HIGH if h else Priority.LOW
+            out[slot].append((svc.submit(x[i], int(s), priority=prio),
+                              int(i), int(s)))
+
+    _in_threads(produce, 120.0)
+    return [r for slot in out for r in slot]
+
+
+def _check_served(what: str, svc, engine, x, requests) -> dict:
+    """Every request answered ``ok``, and each risk, median and curve as
+    direct ``engine.score`` calls of the same rows give them, made in the
+    service's batch size (so in the bucket most batches took); returns the
+    errors and the number of those calls."""
+    import numpy as np
+
+    resps = [svc.wait(rid, timeout=120.0) for rid, _, _ in requests]
+    bad = [r.error for r in resps if not r.ok]
+    check(not bad, f"{what}: {len(bad)} error responses, first {bad[:3]}")
+    rows = np.asarray([i for _, i, _ in requests])
+    strata = np.asarray([s for _, _, s in requests], np.int32)
+    b = svc.max_batch
+    direct = [engine.score(x[rows[i:i + b]], strata[i:i + b]
+                           if engine.model.n_strata > 1 else None,
+                           with_curves=True)
+              for i in range(0, len(rows), b)]
+    risk, med, curves = (np.concatenate(parts) for parts in zip(*direct))
+    got_risk = np.asarray([r.risk for r in resps])
+    got_med = np.asarray([r.median for r in resps])
+    got_curves = np.stack([r.curve for r in resps])
+    err_r = float(np.max(np.abs(got_risk - risk) / risk))
+    err_c = float(np.max(np.abs(got_curves - curves)))
+    same_med = bool(np.array_equal(got_med, med))
+    log(f"  {what}: {len(resps)} requests ok; against {len(direct)} direct "
+        f"engine.score calls of the same rows, {b} at a time: risk rel err "
+        f"{err_r:.3e} (tol {SERVE_RISK_RTOL:.0e}), curves max |err| "
+        f"{err_c:.3e} (tol {CURVES_ATOL:.0e}), medians equal: {same_med}")
+    check(np.all(np.isfinite(got_curves)) and err_r <= SERVE_RISK_RTOL
+          and err_c <= CURVES_ATOL and same_med,
+          f"{what}: served scores differ from the engine's")
+    return {"risk_rel_err": err_r, "curves_max_abs_err": err_c,
+            "direct_calls": len(direct)}
+
+
+def _closed_loop(svc, feats, seconds: float) -> dict:
+    """SERVE_THREADS submitters, each keeping ``max_batch`` requests in
+    flight (a new one as its oldest is answered) for ``seconds``: the
+    service saturated by a fixed population. Returns its rate, its
+    batches and latencies, all responses ``ok``."""
+    import collections
+
+    import numpy as np
+
+    lats = [[] for _ in range(SERVE_THREADS)]
+
+    def run(slot):
+        rng = np.random.default_rng(SEED + 40 + slot)
+        window = collections.deque()
+        end = time.perf_counter() + seconds
+        while time.perf_counter() < end or window:
+            if len(window) < svc.max_batch and time.perf_counter() < end:
+                window.append(svc.submit(feats[rng.integers(0, len(feats))]))
+                continue
+            resp = svc.wait(window.popleft(), timeout=120.0)
+            check(resp.ok, f"closed loop: error response {resp.error}")
+            lats[slot].append(resp.latency_s)
+
+    batches = svc.stats()["n_batches"]
+    elapsed = _in_threads(run, seconds + 120.0)
+    batches = svc.stats()["n_batches"] - batches
+    lat = [v for slot in lats for v in slot]
+    return {"served": len(lat), "seconds": elapsed,
+            "reqs_per_s": len(lat) / elapsed, "batches": batches,
+            "mean_batch": len(lat) / max(batches, 1),
+            "ms_per_batch": elapsed / max(batches, 1) * 1e3,
+            "p50_ms": _percentile_ms(lat, 50),
+            "p99_ms": _percentile_ms(lat, 99)}
+
+
+def _open_loop(svc, feats, rps: float, seconds: float, seed: int,
+               deadline_low, mid_run=None) -> dict:
+    """``benchmarks/bench_overload.py``'s open loop: seeded Poisson arrivals
+    at ``rps`` on their own clock (a backlogged schedule submits at once),
+    SERVE_HIGH of them HIGH, LOW ones with ``deadline_low``; ``mid_run``
+    fires once past half the run on a thread of its own. Returns every
+    outcome (``ok`` as (priority, arrival offset, row, submit time,
+    response)); a submitted rid with no response is silent loss."""
+    import threading
+
+    import numpy as np
+
+    from repro_torch.serving import Priority, QueueFull
+
+    rng = np.random.default_rng(seed)
+    arrivals = np.cumsum(rng.exponential(1.0 / rps,
+                                         size=max(int(rps * seconds * 2), 16)))
+    arrivals = arrivals[arrivals < seconds]
+    rng = np.random.default_rng(seed + 1)
+    prios = rng.random(len(arrivals)) < SERVE_HIGH
+    rows = rng.integers(0, len(feats), len(arrivals))
+    submitted, rejected = [], 0
+    t_mid = mid_thread = None
+    svc.start()
+    t0 = time.perf_counter()
+    for t_arr, high, i in zip(arrivals, prios, rows):
+        if mid_run is not None and t_mid is None and t_arr >= seconds / 2:
+            t_mid = time.perf_counter() - t0
+            mid_thread = threading.Thread(target=mid_run, daemon=True)
+            mid_thread.start()
+        delay = t_arr - (time.perf_counter() - t0)
+        if delay > 0:
+            time.sleep(delay)
+        prio = Priority.HIGH if high else Priority.LOW
+        try:
+            t_abs = time.perf_counter()
+            rid = svc.submit(feats[i], priority=prio, deadline_s=(
+                None if high else deadline_low))
+            submitted.append((rid, prio, float(t_arr), int(i), t_abs))
+        except QueueFull:
+            rejected += 1
+    t_offered = time.perf_counter() - t0
+    if mid_thread is not None:
+        mid_thread.join(120.0)
+        check(not mid_thread.is_alive(), "the mid-run call did not end")
+    end = time.perf_counter() + 60.0
+    while svc.stats()["queue_depth"] and time.perf_counter() < end:
+        time.sleep(0.005)
+    svc.stop()
+    svc.drain()
+    out = {"offered": len(arrivals), "offered_rps": len(arrivals) / t_offered,
+           "rejected": rejected, "shed": 0, "expired": 0, "errors": [],
+           "lost": 0, "t_mid": t_mid, "ok": []}
+    for rid, prio, t_arr, i, t_abs in submitted:
+        resp = svc.result(rid)
+        if resp is None:
+            out["lost"] += 1
+        elif resp.ok:
+            out["ok"].append((prio, t_arr, i, t_abs, resp))
+        elif resp.error == "shed":
+            out["shed"] += 1
+        elif resp.error == "deadline_exceeded":
+            out["expired"] += 1
+        else:
+            out["errors"].append(resp.error)
+    out["shed_frac"] = ((out["rejected"] + out["shed"] + out["expired"])
+                        / max(out["offered"], 1))
+    out["p99_high_ms"] = _percentile_ms(
+        [r.latency_s for p, _, _, _, r in out["ok"] if p == Priority.HIGH],
+        99)
+    return out
+
+
+def _device_idle(trace_path: Path, wall_s: float) -> float:
+    """1 - (the union of the device's kernels, copies and memsets in a
+    torch.profiler Chrome trace) / ``wall_s``."""
+    spans = sorted(
+        (float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0.0)))
+        for e in json.loads(trace_path.read_text())["traceEvents"]
+        if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    check(bool(spans), f"{trace_path}: no device activity in the trace")
+    busy_us, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy_us += b - max(a, end)
+            end = b
+    return 1.0 - busy_us / 1e6 / wall_s
+
+
+SERVICE_SPANS = ("service.step", "service.batch_form", "service.dispatch",
+                 "engine.score", "service.respond")
+
+
+def _span_breakdown(path: Path, loop: dict) -> dict:
+    """Mean milliseconds a batch in each of the drain thread's spans, and
+    the share of the closed loop's window spent inside ``service.step``."""
+    from repro_torch.obs import events
+
+    spans = [r for r in events.read_jsonl(str(path)) if r["kind"] == "span"]
+    steps = sum(r["name"] == "service.step" for r in spans)
+    check(steps > 0, f"{path}: no service.step span")
+    total = {name: sum(r["dur_s"] for r in spans if r["name"] == name)
+             for name in SERVICE_SPANS}
+    return {"batches": steps,
+            "ms_per_batch": {k: v / steps * 1e3 for k, v in total.items()},
+            "step_share": total["service.step"] / loop["seconds"]}
+
+
+def serving_phase(model, strat_model, x, t, delta) -> dict:
+    """Phase 11: the service front end at full width on the phase-4 and
+    phase-5b artifacts; returns its numbers and its two paths' launches."""
+    import os
+
+    import numpy as np
+
+    from repro_torch.kernels import ops
+    from repro_torch.obs import profile, trace
+    from repro_torch.serving import (ArtifactCorrupt, ChaosEngine,
+                                     ModelRegistry, RiskService,
+                                     corrupt_artifact, fit_survival_model)
+    from repro_torch.serving.registry import FAILED, READY
+
+    log("phase 11: the serving front end")
+    work = ROOT / "build" / "chip_smoke" / "serve"
+    work.mkdir(parents=True, exist_ok=True)
+    feats = x[np.random.default_rng(SEED + 30).integers(0, x.shape[0],
+                                                        SERVE_REQUESTS)]
+    model2 = fit_survival_model(x, t, delta, (model.beta * 0.95).astype(
+        np.float32), time_grid=model.time_grid)
+    out = {}
+
+    ops.reset_launch_counts()
+    # 1. registry from disk: sha256-verified load, the ladder warmed on the
+    # registry's thread, then swapped live
+    svc = RiskService(None, return_curves=True)
+    reg = ModelRegistry(svc)
+    path = model.save(str(work / "champ"))
+    reg.load("champ", path, block=False)
+    entry = reg.wait_ready("champ", timeout=300.0)
+    engine = entry.engine
+    ladder = len(reg.prewarm_batches)
+    check(entry.state == READY and entry.compiles == ladder
+          and engine.calls == ladder,
+          f"registry load: state {entry.state}, {entry.compiles} builds "
+          f"and {engine.calls} calls for a ladder of {ladder}")
+    check(reg.swap("champ") == 1, "the first swap is generation 1")
+    log(f"  registry: 'champ' loaded from disk (sha256 verified), warmed "
+        f"buckets {reg.prewarm_batches} with the curve kind, swapped live; "
+        f"max_batch {svc.max_batch}, retries {svc.retries}, down_after "
+        f"{svc.down_after}")
+
+    # 2-3. correctness under load, with exact launch counts
+    svc.start()
+    reqs = _submit_rows(svc, x, SERVE_REQUESTS, SEED + 20)
+    resps_ok = _check_served("1 stratum", svc, engine, x, reqs)
+    st = svc.stats()
+    launched = ops.launch_counts()
+    # the warmed buckets, the service's batches, the direct check's calls
+    calls = ladder + st["n_batches"] + resps_ok["direct_calls"]
+    _check_counts("correctness run", launched, {"survival_curves": calls})
+    check(engine.calls == calls, f"engine calls {engine.calls}")
+    log(f"  {st['n_requests']} requests in {st['n_batches']} batches "
+        f"(mean {st['mean_batch']:.2f}), p50 {st['latency_p50_ms']:.3f} ms, "
+        f"p99 {st['latency_p99_ms']:.3f} ms")
+    svc.stop()
+
+    # 4. capacity and overload, each on a service of its own
+    cap_svc = RiskService(engine, return_curves=True)
+    cap_svc.start()
+    cap = _closed_loop(cap_svc, feats, SERVE_SECONDS)
+    cap_svc.stop()
+    rps = cap["reqs_per_s"]
+    log(f"  closed loop, {SERVE_THREADS} submitters x {cap_svc.max_batch} in "
+        f"flight: {rps:.1f} req/s, mean batch {cap['mean_batch']:.2f}, "
+        f"{cap['ms_per_batch']:.4f} ms a scored batch through the service, "
+        f"p50 {cap['p50_ms']:.3f} ms, p99 {cap['p99_ms']:.3f} ms")
+    out["capacity"] = cap
+    out["load"] = {}
+    for mult in SERVE_LOADS:
+        load_svc = RiskService(engine, return_curves=True,
+                               max_queue=8 * cap_svc.max_batch)
+        res = _open_loop(load_svc, feats, mult * rps, SERVE_SECONDS,
+                         SEED + int(mult * 10), SERVE_LOW_DEADLINE)
+        silent = res["lost"]
+        log(f"  open loop at {mult:g}x: offered {res['offered']} "
+            f"({res['offered_rps']:.1f} req/s), ok {len(res['ok'])}, "
+            f"rejected {res['rejected']}, evicted {res['shed']}, expired "
+            f"{res['expired']}; shed fraction {res['shed_frac']:.4f}, p99 "
+            f"HIGH {res['p99_high_ms']:.3f} ms, silent loss {silent}")
+        check(silent == 0, f"{mult:g}x: {silent} requests silently lost")
+        check(not res["errors"], f"{mult:g}x: error responses "
+              f"{res['errors'][:3]}")
+        out["load"][f"{mult:g}x"] = {
+            k: res[k] for k in ("offered", "offered_rps", "rejected", "shed",
+                                "expired", "shed_frac", "p99_high_ms")}
+        out["load"][f"{mult:g}x"]["silent_loss"] = silent
+
+    # 5. hot swap under load: a refit model rolled out halfway through
+    swaps0 = svc.stats()["engine_swaps"]
+    swapped = {}
+
+    def rollout():
+        swapped["gen"] = reg.rollout("retrain", model2)
+        swapped["t"] = time.perf_counter()
+
+    res = _open_loop(svc, feats, SERVE_SWAP_LOAD * rps, SERVE_SECONDS,
+                     SEED + 5, None, mid_run=rollout)
+    dropped = (res["lost"] + len(res["errors"]) + res["shed"]
+               + res["expired"] + res["rejected"])
+    swaps = svc.stats()["engine_swaps"] - swaps0
+    engine2 = reg.engine()
+    t_sub = np.asarray([t_arr for _, t_arr, _, _, _ in res["ok"]])
+    lat = np.asarray([r.latency_s for _, _, _, _, r in res["ok"]])
+    win = (t_sub >= res["t_mid"] - 0.1) & (t_sub <= res["t_mid"] + 0.4)
+    swap = {"dropped": dropped, "generation": swapped.get("gen"),
+            "engine_swaps": swaps, "served": len(res["ok"]),
+            "window_requests": int(win.sum()),
+            "p99_window_ms": _percentile_ms(lat[win], 99),
+            "p99_steady_ms": _percentile_ms(lat[~win], 99)}
+    check(dropped == 0, f"hot swap dropped {dropped} requests")
+    check(swapped.get("gen") == 2 and reg.generation == 2 and swaps == 1
+          and svc.engine is engine2,
+          f"hot swap: generation {swapped.get('gen')}, swaps {swaps}")
+    # requests submitted after the rollout returned score on the new model
+    late = [(i, r) for _, _, i, t_abs, r in res["ok"]
+            if t_abs > swapped["t"]][-64:]
+    check(len(late) > 0, "no request was submitted after the swap")
+    rows = np.asarray([i for i, _ in late])
+    got = np.asarray([r.risk for _, r in late])
+    want2 = engine2.score(feats[rows], with_curves=True)[0]
+    want1 = engine.score(feats[rows], with_curves=True)[0]
+    swap["new_model_risk_rel_err"] = float(np.max(np.abs(got - want2)
+                                                  / want2))
+    swap["old_model_risk_rel_diff"] = float(np.max(np.abs(got - want1)
+                                                   / want1))
+    log(f"  hot swap at {SERVE_SWAP_LOAD:g}x: generation {swap['generation']},"
+        f" {swap['served']} served, dropped {dropped}, engine swaps +{swaps};"
+        f" p99 of the {swap['window_requests']} requests submitted in the "
+        f"swap window {swap['p99_window_ms']:.3f} ms against "
+        f"{swap['p99_steady_ms']:.3f} ms steady; {len(late)} requests after "
+        f"the swap against the new model: risk rel err "
+        f"{swap['new_model_risk_rel_err']:.3e} (the old model's differ by "
+        f"{swap['old_model_risk_rel_diff']:.3e})")
+    check(swap["new_model_risk_rel_err"] <= SERVE_RISK_RTOL
+          and swap["old_model_risk_rel_diff"] > 1e3 * SERVE_RISK_RTOL,
+          "requests after the swap did not score on the new model")
+    out["swap"] = swap
+    check(svc.stats()["error_count"] == 0 and svc.health() == "SERVING",
+          "error responses or health off SERVING before the chaos step")
+
+    # 6. chaos: the live engine behind a fault injector, the service stepped
+    # by hand so that each batch is exactly the requests just submitted
+    chaos = ChaosEngine(engine2, seed=SEED)
+    svc.set_engine(chaos)
+    base = svc.stats()
+    rng = np.random.default_rng(SEED + 50)
+
+    def one_batch():
+        rids = [svc.submit(feats[i])
+                for i in rng.integers(0, len(feats), CHAOS_BATCH)]
+        served = svc.step()
+        return served, [svc.result(rid) for rid in rids]
+
+    def moved(key):
+        return svc.stats()[key] - base[key]
+
+    chaos.fail_next(2)
+    served, resps = one_batch()
+    check(served == CHAOS_BATCH and all(r.ok for r in resps)
+          and moved("retry_count") == 2 and moved("engine_failures") == 0
+          and svc.health() == "SERVING" and chaos.faults_injected == 2,
+          f"fail_next(2): served {served}, retries {moved('retry_count')}, "
+          f"health {svc.health()}")
+    chaos.fail_next(svc.retries + 1)
+    served, resps = one_batch()
+    check(served == 0 and all(r is not None and not r.ok
+                              and "EngineFault" in r.error for r in resps)
+          and moved("error_count") == CHAOS_BATCH
+          and moved("engine_failures") == 1 and svc.health() == "DEGRADED",
+          f"fail_next({svc.retries + 1}): served {served}, errors "
+          f"{moved('error_count')}, health {svc.health()}")
+    served, resps = one_batch()
+    check(served == CHAOS_BATCH and all(r.ok for r in resps)
+          and svc.health() == "SERVING",
+          f"after the failed batch: served {served}, health {svc.health()}")
+    bad = model2.save(str(work / "corrupt"))
+    corrupt_artifact(bad, "beta", mode="flip", seed=SEED)
+    try:
+        reg.load("corrupt", bad)
+        corrupt_error = None
+    except ArtifactCorrupt as e:
+        corrupt_error = str(e)
+    entry = reg.get("corrupt")
+    check(corrupt_error is not None and entry.state == FAILED
+          and "ArtifactCorrupt" in entry.error
+          and reg.status()["live"] == "retrain" and svc.engine is chaos,
+          f"corrupt artifact: state {entry.state}, error {entry.error}")
+    served, resps = one_batch()
+    check(served == CHAOS_BATCH and all(r.ok for r in resps),
+          "the live engine stopped serving after a corrupt load")
+    reg.unload("corrupt")
+    out["chaos"] = {"retries": moved("retry_count"),
+                    "error_responses": moved("error_count"),
+                    "engine_failures": moved("engine_failures"),
+                    "faults_injected": chaos.faults_injected,
+                    "corrupt_load": corrupt_error}
+    log(f"  chaos: fail_next(2) recovered by 2 retries; fail_next("
+        f"{svc.retries + 1}) gave the batch's {CHAOS_BATCH} requests error "
+        f"responses, DEGRADED, then SERVING after the next batch; a flipped "
+        f"byte of beta.npy: {corrupt_error}; the live engine kept serving")
+
+    # 7. the device's idle share over a profiled window of closed-loop
+    # serving
+    prof_dir = ROOT / "build" / "chip_smoke" / "profile"
+    before = os.environ.get(profile.ENV_VAR)
+    os.environ[profile.ENV_VAR] = str(prof_dir)
+    try:
+        svc.start()
+        with profile.maybe_profile("serve"):
+            loop = _closed_loop(svc, feats, SERVE_PROFILE_SECONDS)
+        svc.stop()
+    finally:
+        if before is None:
+            del os.environ[profile.ENV_VAR]
+        else:
+            os.environ[profile.ENV_VAR] = before
+    chrome = prof_dir / "serve" / profile.TRACE_FILE
+    check(chrome.is_file(), f"no profiler trace at {chrome}")
+    out["idle_share"] = _device_idle(chrome, loop["seconds"])
+    out["profiled"] = loop
+    log(f"  profiled {loop['seconds']:.3f} s of closed-loop serving "
+        f"({loop['reqs_per_s']:.1f} req/s) into {chrome.relative_to(ROOT)}: "
+        f"device idle {out['idle_share']:.1%}")
+
+    # where the drain thread's time goes: the service's spans over a
+    # window of closed-loop serving with tracing on
+    spans_path = work / "spans.jsonl"
+    trace.configure(str(spans_path))
+    try:
+        svc.start()
+        loop = _closed_loop(svc, feats, SERVE_PROFILE_SECONDS)
+        svc.stop()
+    finally:
+        trace.configure(None)
+    out["spans"] = _span_breakdown(spans_path, loop)
+    log(f"  traced {loop['seconds']:.3f} s of closed-loop serving "
+        f"({loop['reqs_per_s']:.1f} req/s, {loop['batches']} batches): ms a "
+        f"batch " + ", ".join(f"{k} {v:.4f}" for k, v in
+                              out["spans"]["ms_per_batch"].items())
+        + f"; the drain thread inside service.step "
+        f"{out['spans']['step_share']:.1%} of the window")
+
+    st = svc.stats()
+    statuses = {m: e["state"] for m, e in reg.status()["models"].items()}
+    check(st["health"] == "SERVING" and st["error_count"]
+          - base["error_count"] == CHAOS_BATCH and FAILED not in
+          statuses.values(), f"after the phase: health {st['health']}, "
+          f"models {statuses}")
+    serve = ops.launch_counts()
+    _check_counts("serve path", serve, {
+        "survival_curves": engine.calls + engine2.calls})
+
+    # 2-3 again on the 8-strata artifact, through survival_curves_stratified
+    ops.reset_launch_counts()
+    ssvc = RiskService(None, return_curves=True)
+    sreg = ModelRegistry(ssvc)
+    sreg.load("strata", strat_model.save(str(work / "strata")), block=False)
+    sentry = sreg.wait_ready("strata", timeout=300.0)
+    check(sentry.state == READY and sentry.compiles == ladder,
+          f"stratified registry load: {sentry.state}, {sentry.compiles}")
+    sreg.swap("strata")
+    ssvc.start()
+    sreqs = _submit_rows(ssvc, x, SERVE_REQUESTS, SEED + 60,
+                         strata=strat_model.n_strata)
+    strat_ok = _check_served(f"{strat_model.n_strata} strata", ssvc,
+                             sentry.engine, x, sreqs)
+    ssvc.stop()
+    sst = ssvc.stats()
+    check(sst["health"] == "SERVING" and sst["error_count"] == 0,
+          "stratified service health")
+    serve_strat = ops.launch_counts()
+    _check_counts("stratified serve path", serve_strat, {
+        "survival_curves_stratified": ladder + sst["n_batches"]
+        + strat_ok["direct_calls"]})
+    out["correct"] = {"1 stratum": resps_ok,
+                      f"{strat_model.n_strata} strata": strat_ok}
+    out["launches"] = {"serve": serve, "serve_stratified": serve_strat}
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1692,6 +2250,9 @@ def main() -> int:
     check(launches["stratified scoring"]["survival_curves_stratified"] > 0,
           "survival_curves_stratified did not launch on the stratified path")
 
+    serve = serving_phase(state["model"], strat["model"], x, t, delta)
+    launches.update(serve["launches"])
+
     log("phase 6: timings of the first slice's kernels")
     times = timings(state)
     library = dict.fromkeys(times)
@@ -1742,6 +2303,7 @@ def main() -> int:
                if name in errs_bf16 else {})})
     check(sorted(k["name"] for k in kernels) == sorted(REPLACES),
           "the kernels line lacks a kernel")
+    print(json.dumps({"serve": serve}))
     print(json.dumps({
         "selection_launches": {"beam_search": launches["beam search"],
                                "omp_greedy": launches["omp"],

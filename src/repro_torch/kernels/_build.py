@@ -61,6 +61,32 @@ build_seconds = 0.0
 build_log = ""
 
 
+class LaunchCounts:
+    """Calls that launched each kernel, by kernel name. A wrapper adds one
+    after its launch and nowhere else; the serving threads launch from
+    several host threads at once, so every read and write holds a lock."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._counts: dict = {}
+
+    def add(self, kernel: str) -> None:
+        with self._lock:
+            self._counts[kernel] = self._counts.get(kernel, 0) + 1
+
+    def read(self, kernels) -> dict:
+        with self._lock:
+            return {k: self._counts.get(k, 0) for k in kernels}
+
+    def reset(self) -> None:
+        with self._lock:
+            self._counts.clear()
+
+
+# the process's counts, read by ops.launch_counts()
+LAUNCHES = LaunchCounts()
+
+
 class KernelBuildError(RuntimeError):
     """nvcc is missing or refused a source."""
 

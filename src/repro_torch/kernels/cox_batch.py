@@ -17,8 +17,6 @@ from . import _build, ref
 Tensor = torch.Tensor
 _DTYPES = (torch.float32, torch.bfloat16)
 
-# calls that launched the CUDA kernel (the plain version counts nothing)
-launches = 0
 # kernel launches in one such call
 KERNELS_PER_CALL = 1
 # the last epoch handed to the kernel (its carries and counters carry it)
@@ -34,7 +32,7 @@ def cox_batch(x: Tensor, w: Tensor, r: Tensor, wa: Tensor, delta: Tensor,
     nothing else (its scratch is the wrapper's own, kept per device and
     stream). On the CPU the plain version runs, in float64 when given
     float64."""
-    global launches, _epoch
+    global _epoch
     if x.dim() != 2 or x.shape[0] < 1 or x.shape[1] < 1:
         raise ValueError(f"cox_batch: x must be a non-empty (n, p) panel, "
                          f"got shape {tuple(x.shape)}")
@@ -63,5 +61,5 @@ def cox_batch(x: Tensor, w: Tensor, r: Tensor, wa: Tensor, delta: Tensor,
         delta.data_ptr(), inv_s0.data_ptr(), n, p, bf16, tagged.data_ptr(),
         partials.data_ptr(), _epoch, out[0].data_ptr(), out[1].data_ptr(),
         st), "cox_batch")
-    launches += 1
+    _build.LAUNCHES.add("cox_batch")
     return out[0], out[1]

@@ -18,8 +18,6 @@ from . import _build, ref
 
 Tensor = torch.Tensor
 
-# calls that launched the CUDA kernels (the plain version counts nothing)
-launches = 0
 # kernel launches in one such call, and samples a block takes (kTile in
 # csrc/cox_coord.cu)
 KERNELS_PER_CALL = 2
@@ -42,7 +40,6 @@ def cox_coord(eta: Tensor, x: Tensor, delta: Tensor, risk_start: Tensor,
     given, and nothing else: the returned tensor is the wrapper's own
     buffer for this device and stream, overwritten by the next call there.
     Clone it to keep it."""
-    global launches
     if order not in (2, 3):
         raise ValueError(f"order must be 2 or 3, got {order}")
     n = eta.shape[0] if eta.dim() == 1 else -1
@@ -75,5 +72,5 @@ def cox_coord(eta: Tensor, x: Tensor, delta: Tensor, risk_start: Tensor,
         eta.data_ptr(), x.data_ptr(), delta.data_ptr(),
         group_events.data_ptr(), n, order, scratch.data_ptr(),
         out.data_ptr(), st), "cox_coord")
-    launches += 1
+    _build.LAUNCHES.add("cox_coord")
     return out

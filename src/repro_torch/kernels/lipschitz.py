@@ -16,8 +16,6 @@ from . import _build, ref
 
 Tensor = torch.Tensor
 
-# calls that launched the CUDA kernel (the plain version counts nothing)
-launches = 0
 # kernel launches in one such call given ``group_events``
 KERNELS_PER_CALL = 1
 # the last epoch handed to the kernel (its carries and counters carry it)
@@ -36,7 +34,7 @@ def lipschitz(x: Tensor, delta: Tensor, risk_start: Tensor,
     the wrapper's own, kept per device and stream). On the CPU the plain
     version runs, in float64 when given float64: the risk-start form, or
     the group-start form when ``group_events`` is given."""
-    global launches, _epoch
+    global _epoch
     if x.dim() != 2 or x.shape[0] < 1 or x.shape[1] < 1:
         raise ValueError(f"lipschitz: x must be a non-empty (n, p) panel, "
                          f"got shape {tuple(x.shape)}")
@@ -70,5 +68,5 @@ def lipschitz(x: Tensor, delta: Tensor, risk_start: Tensor,
         x.data_ptr(), group_events.data_ptr(), n, p, tagged.data_ptr(),
         partials.data_ptr(), _epoch, out[0].data_ptr(), out[1].data_ptr(),
         st), "lipschitz")
-    launches += 1
+    _build.LAUNCHES.add("lipschitz")
     return out[0], out[1]

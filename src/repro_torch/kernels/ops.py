@@ -4,12 +4,13 @@ Each call dispatches to one wrapper: a tensor on a card launches the CUDA
 kernel, a tensor on the CPU takes the plain version (``ref.py``). Every
 dispatch counts in ``kernel_dispatch_total``, labelled with the kernel and
 the route taken (``cuda`` or ``plain``), so a fleet that silently ran the
-plain version would show it in the metrics. The wrappers' own ``launches``
-counts (``launch_counts()``) count the calls that launched their kernels
-and nothing else; a call may be several launches (every wrapper module
-states its own in ``KERNELS_PER_CALL``: ``cox_coord`` 2, ``revcumsum`` 1
-or 2 by layout, ``cox_batch``, ``lipschitz`` and ``survival_curves``, both
-curve kernels, 1).
+plain version would show it in the metrics. The wrappers' launch counts
+(``launch_counts()``, kept in ``_build.LAUNCHES`` under a lock, as the
+serving threads launch from several host threads) count the calls that
+launched their kernels and nothing else; a call may be several launches
+(every wrapper module states its own in ``KERNELS_PER_CALL``:
+``cox_coord`` 2, ``revcumsum`` 1 or 2 by layout, ``cox_batch``,
+``lipschitz`` and both curve kernels 1).
 
 The port has no block autotuner: each kernel picks its own launch shape.
 """
@@ -20,6 +21,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from ..obs import metrics as obs_metrics
+from . import _build
 from . import cox_batch as _cox_batch
 from . import cox_coord as _cox_coord
 from . import lipschitz as _lipschitz
@@ -33,14 +35,9 @@ _M_DISPATCH = obs_metrics.REGISTRY.counter(
     "kernel_dispatch_total", "kernel dispatches by route",
     ("kernel", "route"))
 
-# kernel name -> (wrapper module, name of its launch count)
-_WRAPPERS = {"cox_coord": (_cox_coord, "launches"),
-             "lipschitz": (_lipschitz, "launches"),
-             "survival_curves": (_survival_curves, "launches"),
-             "revcumsum": (_revcumsum, "launches"),
-             "cox_batch": (_cox_batch, "launches"),
-             "survival_curves_stratified": (_survival_curves,
-                                            "stratified_launches")}
+# every wrapper's kernel, by the name its launches count under
+KERNELS = ("cox_coord", "lipschitz", "survival_curves", "revcumsum",
+           "cox_batch", "survival_curves_stratified")
 
 
 def _count(kernel: str, t: Tensor) -> None:
@@ -51,13 +48,11 @@ def _count(kernel: str, t: Tensor) -> None:
 def launch_counts() -> Dict[str, int]:
     """Calls that launched their kernels, per wrapper, since the last
     reset."""
-    return {name: getattr(mod, attr)
-            for name, (mod, attr) in _WRAPPERS.items()}
+    return _build.LAUNCHES.read(KERNELS)
 
 
 def reset_launch_counts() -> None:
-    for mod, attr in _WRAPPERS.values():
-        setattr(mod, attr, 0)
+    _build.LAUNCHES.reset()
 
 
 def revcumsum(x: Tensor) -> Tensor:

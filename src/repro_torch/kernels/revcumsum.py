@@ -15,8 +15,6 @@ Tensor = torch.Tensor
 _DTYPES = (torch.float32, torch.bfloat16)
 PANEL_MIN_COLS = 32
 
-# calls that launched the CUDA kernels (the plain version counts nothing)
-launches = 0
 # kernel launches in one such call, by layout
 KERNELS_PER_CALL = {"panel": 1, "vector": 2}
 # the last epoch handed to the kernel (the panel's carries carry it)
@@ -29,7 +27,7 @@ def revcumsum(x: Tensor) -> Tensor:
     On a card x is float32 or bfloat16; the sums run in float32 and the
     result takes x's type. On the CPU the plain version runs, in float64
     when given float64."""
-    global launches, _epoch
+    global _epoch
     if x.dim() not in (1, 2) or 0 in x.shape:
         raise ValueError(f"revcumsum: x must be a non-empty (n,) or (n, m) "
                          f"tensor, got shape {tuple(x.shape)}")
@@ -52,5 +50,5 @@ def revcumsum(x: Tensor) -> Tensor:
     _build.check(lib.repro_revcumsum(
         x.data_ptr(), n, m, bf16, scratch.data_ptr(), _epoch, out.data_ptr(),
         st), "revcumsum")
-    launches += 1
+    _build.LAUNCHES.add("revcumsum")
     return out

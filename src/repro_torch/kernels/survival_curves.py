@@ -22,9 +22,6 @@ from . import _build, ref
 
 Tensor = torch.Tensor
 
-# calls that launched each CUDA kernel (the plain versions count nothing)
-launches = 0
-stratified_launches = 0
 # kernel launches in one such call, and no other device operation
 KERNELS_PER_CALL = 1
 
@@ -86,7 +83,6 @@ def survival_curves(eta: Tensor, h0: Tensor) -> Tensor:
     eta: (b,) linear predictors; h0: (g,) cumulative baseline hazard, both
     float32 on a card, where the call is one kernel launch and nothing
     else. On the CPU the plain version runs."""
-    global launches
     if eta.dim() != 1 or h0.dim() != 1:
         raise ValueError(f"survival_curves: eta and h0 must be vectors, got "
                          f"{tuple(eta.shape)} and {tuple(h0.shape)}")
@@ -105,7 +101,7 @@ def survival_curves(eta: Tensor, h0: Tensor) -> Tensor:
     _build.check(lib.repro_survival_curves(
         eta.data_ptr(), h0.data_ptr(), b, g, pl.blocks, pl.slab, pl.vec,
         pl.tail, out.data_ptr(), _build.stream()), "survival_curves")
-    launches += 1
+    _build.LAUNCHES.add("survival_curves")
     return out
 
 
@@ -118,7 +114,6 @@ def survival_curves_stratified(eta: Tensor, h0: Tensor,
     float32 and strata int32, strata must lie in [0, s) (the kernel does
     not check them on the device), and the call is one kernel launch and
     nothing else. On the CPU the plain version runs."""
-    global stratified_launches
     if eta.dim() != 1 or h0.dim() != 2:
         raise ValueError(f"survival_curves_stratified: eta must be a vector "
                          f"and h0 an (s, g) table, got {tuple(eta.shape)} "
@@ -141,5 +136,5 @@ def survival_curves_stratified(eta: Tensor, h0: Tensor,
         eta.data_ptr(), h0.data_ptr(), strata.data_ptr(), b, g, s, pl.blocks,
         pl.slab, pl.vec, pl.tail, int(pl.staged), out.data_ptr(),
         _build.stream()), "survival_curves_stratified")
-    stratified_launches += 1
+    _build.LAUNCHES.add("survival_curves_stratified")
     return out

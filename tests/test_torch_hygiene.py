@@ -57,3 +57,22 @@ def test_forbidden_pattern_catches_reference_imports():
     for line in ("import repro_torch", "from repro_torch.core import cox",
                  "from .core import cox", "# jax is the reference"):
         assert not FORBIDDEN.search(line), line
+
+
+@pytest.mark.parametrize("rel", ["serving/service.py", "serving/registry.py",
+                                 "serving/chaos.py", "obs/profile.py"])
+def test_serving_front_end_imports_no_jax_or_reference(rel):
+    """The serving front end's modules, each imported alone, pull in
+    neither JAX nor the JAX package."""
+    path = PKG / rel
+    assert path.is_file() and not FORBIDDEN.findall(path.read_text())
+    module = "repro_torch." + rel[:-3].replace("/", ".")
+    code = (f"import importlib, json, sys\n"
+            f"importlib.import_module({module!r})\n"
+            "print(json.dumps(sorted(m for m in sys.modules\n"
+            "    if m in ('jax', 'repro') or m.startswith(('jax.', 'repro.')))))\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert json.loads(res.stdout.strip().splitlines()[-1]) == []
