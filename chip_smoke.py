@@ -105,7 +105,7 @@ Phases, each printed as it runs; any failed check raises:
      and equal to direct ``engine.score`` calls of its row in batches of
      64 (SERVE_RISK_RTOL, CURVES_ATOL, medians exact), with
      survival_curves launched exactly the warmed buckets plus the batches
-     plus those calls; a closed loop
+     before those calls (which the path's count leaves out); a closed loop
      (4 submitters, 64 requests in flight each, 3 s) for the capacity,
      then benchmarks/bench_overload.py's open loop at 0.5x and 2x of it
      (seeded Poisson arrivals, 25 % HIGH, LOW deadline 0.25 s, max_queue
@@ -119,14 +119,46 @@ Phases, each printed as it runs; any failed check raises:
      trace's device idle share. Then the 8-strata artifact's 4,096
      requests through survival_curves_stratified, counted the same way.
      Its launches are the kernels line's "serve" and "serve_stratified".
+  12. the deep-survival serving path at full width, after phase 10:
+     mamba2-130m as ``deep.model_config(DeepSurvivalConfig(full=True))``
+     gives it (d_model 768, expand 2, ssm_state 128, ssm_head_dim 64,
+     chunk 128, 12 layers, vocab 2,048, bfloat16) with its Cox head, drawn
+     on the card from generators seeded 0, with nothing drawn twice;
+     ``collect_features`` over 128 held-out batches of ``SurvivalTextStream(2048, seq=48, batch=256)``
+     (32,768 sequences; seconds a batch, tokens a second, the device's
+     idle share over one profiled batch); ``refit_and_export`` at the
+     reference's defaults (k 8, beam width 4, grid 64) on the (32,768,
+     768) float32 panel (seconds per support size from the ``beam.size``
+     spans); the artifact saved, rolled out through ``ModelRegistry`` into
+     ``RiskService`` (curves returned) and 4,096 requests of pooled
+     features from 16 further batches served; the counts, zeroed before
+     the featurize and read once the service has stopped, exactly
+     cox_coord, lipschitz and revcumsum as phase 9's formulas give them
+     for the refit's spans and survival_curves the engine's calls (the
+     warmed buckets and the service's batches), nothing else; then, as
+     checks whose launches are not counted, each served answer equal to
+     direct ``engine.score`` calls and to exp(clip(f beta, -30, 30)) within
+     DEEP_RISK_RTOL, the refit's kernel route against its plain route on
+     the same panel at DEEP_COMPARE's depth (supports equal, losses within
+     SELECT_DTOL), and the pooled features of 2 batches against a float32
+     twin of the backbone within SSM_BF16_RTOL; the held-out
+     c-indexes of the deep head and the sparse refit on the served
+     sequences (reported, not gated: the backbone is untrained). Then
+     qwen2.5-3b at full width (12 layers, vocab 2,048): 8 batches of 256 x
+     48 in bfloat16 against a float32 forward of the same weights on the
+     card, the pooled features within DENSE_BF16_RTOL. Its launches are
+     the kernels line's "deep survival".
 
 Phase 2 also holds revcumsum at the selection path's (262,144, 1,000) and
 (262,144, block) panels and lipschitz at (262,144, 15) against their plain
-versions. Kernel launch counts are zeroed just before each path (phases
-3-5, 5b, 11's two services, 7, 9's two calls and 10) and read just after
-it. The line before the last but three is one JSON object with phase 11's
+versions, and every kernel at the shapes phase 12 gives it: revcumsum on
+the (32,768, 768) refit panel, cox_coord at n = 32,768, lipschitz at
+(32,768, 1..8) and (32,768, 768), survival_curves at g = 64 for every
+served bucket b = 1..64. Kernel launch counts are zeroed just before each path (phases
+3-5, 5b, 11's two services, 7, 9's two calls, 10 and 12) and read just after
+it. The line before the last but four is one JSON object with phase 11's
 numbers, then one with the selection path's and phase 10's launch counts,
-then one with every kernel's numbers (its
+then one with phase 12's numbers, then one with every kernel's numbers (its
 ``launches_by_path`` gives every path's count), then the card's name and
 power limit; the last is ``{"ok": true, "device": {...}}``. Without CUDA,
 or without the repository beside it, the script exits nonzero and prints
@@ -134,6 +166,7 @@ no result.
 """
 from __future__ import annotations
 
+import inspect
 import json
 import statistics
 import subprocess
@@ -155,6 +188,7 @@ STREAM_N, STREAM_CHUNK, STREAM_LAM2 = 4_194_304, 65_536, 0.01
 STREAM_EPOCHS, STREAM_COMPARE_EPOCHS, HOST_CHUNKS = 3, 2, 4
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM, NVIDIA data sheet
 FP32_OPS_PER_S = 67e12          # H100 SXM, non-tensor float32
+BF16_OPS_PER_S = 989e12         # H100 SXM, dense bfloat16 tensor cores
 
 # tolerances, with their reasons
 COORD_TOL = 1e-6     # |kernel - plain| <= COORD_TOL * sum_i |term_i|: float32
@@ -213,6 +247,40 @@ CHAOS_BATCH = 16
 SERVE_RISK_RTOL = 1e-5   # a served risk against a direct engine call: the
                          # same float32 exp(x beta), x @ beta at another
                          # bucket; curves within CURVES_ATOL, medians equal
+
+# phase 12: the deep-survival serving path at the full widths of
+# mamba2-130m (deep.model_config(full=True): 12 layers, vocab 2,048) with
+# the reference's seq, refit defaults (k 8, beam width 4, grid 64) and
+# held-out start (after DeepSurvivalConfig.steps); 128 batches of 256
+# sequences featurized where the reference takes 4 x 32
+DEEP_SEQ, DEEP_BATCH, DEEP_BATCHES, DEEP_SERVE_BATCHES = 48, 256, 128, 16
+DEEP_RISK_RTOL = 1e-4    # served risk against exp(clip(f @ beta, -30, 30)),
+                         # the reference's (tests/test_deep.py)
+# the shapes phase 12 gives its kernels, which phase 2 checks (phase 12
+# checks that its path has them): the refit's (DEEP_N, DEEP_D) panel of
+# mamba2-130m's d_model, its k and grid, and the buckets the served batches
+# take (the registry's prewarm ladder at RiskService's max_batch 64)
+DEEP_N, DEEP_D, DEEP_K, DEEP_GRID = DEEP_BATCHES * DEEP_BATCH, 768, 8, 64
+DEEP_CURVE_BS = (1, 2, 4, 8, 16, 32, 64)
+# the refit's kernel route against its plain route on the featurized
+# panel: the refit's own settings (beam_search's defaults, beam width 4)
+# cut to 3 support sizes, held as phase 9 holds it (SELECT_DTOL)
+DEEP_COMPARE = dict(k=3, beam_width=4)
+DEEP_TWIN_BATCHES = 2
+SSM_BF16_RTOL = 6e-2     # ||f_bf16 - f_f32|| / ||f_f32|| over the pooled
+                         # features of mamba2-130m, bfloat16 forward against
+                         # the float32 forward of the same weights: the
+                         # rounding error grows with depth (9.8e-3 at 2
+                         # layers, 2.8e-2 at 12 in the reference's own
+                         # bfloat16 forward on the CPU; the port 9.5e-3 and
+                         # 2.9e-2), twice the reference's at 12 layers
+DENSE_ARCH, DENSE_BATCHES = "qwen2.5-3b", 8
+DENSE_BF16_RTOL = 3e-2   # ||f_bf16 - f_f32|| / ||f_f32|| over the pooled
+                         # features, bfloat16 forward against the float32
+                         # forward of the same weights: 8 bits of mantissa,
+                         # a half-ulp 2^-9 ~ 2e-3 a rounding, compounded over
+                         # 12 layers (4.6e-3 at 2 layers, reduced width, on
+                         # the CPU)
 
 # the TPU kernel each CUDA kernel replaces (its pallas_call), and the path
 # whose launch count the kernels line reports
@@ -423,7 +491,7 @@ def check_curve(name: str, fn, want) -> float:
 
 
 def check_kernels(coord_ns=None, curve_bs=CURVE_BS,
-                  curve_gs=CURVE_GS) -> dict:
+                  curve_gs=CURVE_GS, deep_curve_bs=DEEP_CURVE_BS) -> dict:
     """Every kernel against its plain version on the card; returns the
     largest absolute error of each."""
     import torch
@@ -442,7 +510,7 @@ def check_kernels(coord_ns=None, curve_bs=CURVE_BS,
 
     tile = coord_mod.TILE
     if coord_ns is None:
-        coord_ns = (1, tile - 1, tile, tile + 1, N, 1_048_577)
+        coord_ns = (1, tile - 1, tile, tile + 1, DEEP_N, N, 1_048_577)
     for n in coord_ns:
         for ties in COORD_TIES:
             x = randn(n)
@@ -489,18 +557,18 @@ def check_kernels(coord_ns=None, curve_bs=CURVE_BS,
         coord_mod.KERNELS_PER_CALL, "coord_")
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    for b in curve_bs:
-        for g in curve_gs:
-            eta = curve_eta(b, gen)
-            h0 = torch.cumsum(torch.rand(g, device="cuda", generator=gen),
-                              0) * 0.05
-            pl = curves_mod.plan(b, g, sms)
-            err = check_curve(
-                f"survival_curves b={b} g={g} (vec {pl.vec}, {pl.blocks} "
-                f"blocks, slab {pl.slab})",
-                lambda: survival_curves(eta, h0),
-                ref.survival_curves_ref(eta, h0))
-            errs["survival_curves"] = max(errs["survival_curves"], err)
+    shapes = [(b, g) for b in curve_bs for g in curve_gs]
+    for b, g in shapes + [(b, DEEP_GRID) for b in deep_curve_bs]:
+        eta = curve_eta(b, gen)
+        h0 = torch.cumsum(torch.rand(g, device="cuda", generator=gen),
+                          0) * 0.05
+        pl = curves_mod.plan(b, g, sms)
+        err = check_curve(
+            f"survival_curves b={b} g={g} (vec {pl.vec}, {pl.blocks} "
+            f"blocks, slab {pl.slab})",
+            lambda: survival_curves(eta, h0),
+            ref.survival_curves_ref(eta, h0))
+        errs["survival_curves"] = max(errs["survival_curves"], err)
     # a baseline off 16-byte alignment takes the scalar path at g = 128
     h0 = (torch.cumsum(torch.rand(129, device="cuda", generator=gen), 0)
           * 0.05)[1:]
@@ -580,11 +648,16 @@ def check_scan(x) -> float:
 
 def selection_scan_shapes():
     """The (n, m) panels the selection path scans: the full width and
-    every distinct column block of ``score_candidates``."""
+    every distinct column block of ``score_candidates``; then those of
+    phase 12's refit panel."""
     from repro_torch.core import beam
 
-    widths = {cols.stop - cols.start for cols in beam.column_blocks(N, P, 4)}
-    return ((N, P),) + tuple((N, m) for m in sorted(widths, reverse=True))
+    shapes = []
+    for n, p in ((N, P), (DEEP_N, DEEP_D)):
+        widths = {c.stop - c.start for c in beam.column_blocks(n, p, 4)}
+        shapes += [(n, p)] + [(n, m) for m in sorted(widths, reverse=True)
+                              if m != p]
+    return tuple(shapes)
 
 
 def check_selection_scans(shapes) -> float:
@@ -739,11 +812,13 @@ def check_cox_batch(ns=BATCH_NS, ps=BATCH_PS) -> dict:
     return errs
 
 
-def check_lipschitz(ns=(1, 257, 65_537, N), ps=(1, 15, 37, P)) -> float:
+def check_lipschitz(ns=(1, 257, 65_537, N), ps=(1, 15, 37, P),
+                    launch_shape=True) -> float:
     """lipschitz against its plain version on the card at every (n, p) of
     ``ns`` x ``ps`` and every tie layout of LIP_TIES: the same bits twice
-    and with or without the fit's group counts; then one call's launch
-    shape. Returns the largest absolute error."""
+    and with or without the fit's group counts; then, with
+    ``launch_shape``, one call's launch shape. Returns the largest
+    absolute error."""
     import torch
 
     from repro_torch.kernels import lipschitz as lip_mod
@@ -780,6 +855,8 @@ def check_lipschitz(ns=(1, 257, 65_537, N), ps=(1, 15, 37, P)) -> float:
                 worst = max(worst, err)
                 del got, again, want
                 torch.cuda.empty_cache()
+    if not launch_shape:
+        return worst
     x = torch.randn(N, P, device="cuda", generator=gen)
     d = (torch.rand(N, device="cuda", generator=gen) < 0.7).float()
     rs = _risk_start(N, "quarter", gen)
@@ -1070,16 +1147,24 @@ def _submit_rows(svc, x, n_total: int, seed: int, strata: int = 0) -> list:
     return [r for slot in out for r in slot]
 
 
-def _check_served(what: str, svc, engine, x, requests) -> dict:
-    """Every request answered ``ok``, and each risk, median and curve as
-    direct ``engine.score`` calls of the same rows give them, made in the
-    service's batch size (so in the bucket most batches took); returns the
-    errors and the number of those calls."""
-    import numpy as np
-
+def _await_served(what: str, svc, requests) -> list:
+    """The responses to ``requests``, every one ``ok``."""
     resps = [svc.wait(rid, timeout=120.0) for rid, _, _ in requests]
     bad = [r.error for r in resps if not r.ok]
     check(not bad, f"{what}: {len(bad)} error responses, first {bad[:3]}")
+    return resps
+
+
+def _check_served(what: str, svc, engine, x, requests, resps,
+                  beta=None) -> dict:
+    """Each served risk, median and curve as direct ``engine.score`` calls
+    of the same rows give them, made in the service's batch size (so in
+    the bucket most batches took); with ``beta``, each risk also as
+    exp(clip(x beta, -30, 30)) in float64 within DEEP_RISK_RTOL. Returns
+    the errors and the number of those calls, which launch kernels of
+    their own: read a path's counts before this check."""
+    import numpy as np
+
     rows = np.asarray([i for _, i, _ in requests])
     strata = np.asarray([s for _, _, s in requests], np.int32)
     b = svc.max_batch
@@ -1101,8 +1186,18 @@ def _check_served(what: str, svc, engine, x, requests) -> dict:
     check(np.all(np.isfinite(got_curves)) and err_r <= SERVE_RISK_RTOL
           and err_c <= CURVES_ATOL and same_med,
           f"{what}: served scores differ from the engine's")
-    return {"risk_rel_err": err_r, "curves_max_abs_err": err_c,
-            "direct_calls": len(direct)}
+    out = {"risk_rel_err": err_r, "curves_max_abs_err": err_c,
+           "direct_calls": len(direct)}
+    if beta is not None:
+        expect = np.exp(np.clip(x[rows].astype(np.float64) @ beta, -30.0,
+                                30.0))
+        out["closed_form_rel_err"] = float(np.max(np.abs(got_risk - expect)
+                                                  / expect))
+        log(f"  {what}: risk against exp(clip(x @ beta, -30, 30)) rel err "
+            f"{out['closed_form_rel_err']:.3e} (tol {DEEP_RISK_RTOL:.0e})")
+        check(out["closed_form_rel_err"] <= DEEP_RISK_RTOL,
+              f"{what}: served risks differ from exp(clip(x @ beta))")
+    return out
 
 
 def _closed_loop(svc, feats, seconds: float) -> dict:
@@ -1294,13 +1389,17 @@ def serving_phase(model, strat_model, x, t, delta) -> dict:
     # 2-3. correctness under load, with exact launch counts
     svc.start()
     reqs = _submit_rows(svc, x, SERVE_REQUESTS, SEED + 20)
-    resps_ok = _check_served("1 stratum", svc, engine, x, reqs)
+    resps = _await_served("1 stratum", svc, reqs)
     st = svc.stats()
     launched = ops.launch_counts()
-    # the warmed buckets, the service's batches, the direct check's calls
-    calls = ladder + st["n_batches"] + resps_ok["direct_calls"]
+    # the warmed buckets and the service's batches
+    calls = ladder + st["n_batches"]
     _check_counts("correctness run", launched, {"survival_curves": calls})
     check(engine.calls == calls, f"engine calls {engine.calls}")
+    # the direct calls that check the answers launch kernels too: taken
+    # out of the path's count below
+    resps_ok = _check_served("1 stratum", svc, engine, x, reqs, resps)
+    check_calls = resps_ok["direct_calls"]
     log(f"  {st['n_requests']} requests in {st['n_batches']} batches "
         f"(mean {st['mean_batch']:.2f}), p50 {st['latency_p50_ms']:.3f} ms, "
         f"p99 {st['latency_p99_ms']:.3f} ms")
@@ -1499,8 +1598,9 @@ def serving_phase(model, strat_model, x, t, delta) -> dict:
           statuses.values(), f"after the phase: health {st['health']}, "
           f"models {statuses}")
     serve = ops.launch_counts()
-    _check_counts("serve path", serve, {
+    _check_counts("serve path and its check", serve, {
         "survival_curves": engine.calls + engine2.calls})
+    serve["survival_curves"] -= check_calls
 
     # 2-3 again on the 8-strata artifact, through survival_curves_stratified
     ops.reset_launch_counts()
@@ -1514,19 +1614,350 @@ def serving_phase(model, strat_model, x, t, delta) -> dict:
     ssvc.start()
     sreqs = _submit_rows(ssvc, x, SERVE_REQUESTS, SEED + 60,
                          strata=strat_model.n_strata)
-    strat_ok = _check_served(f"{strat_model.n_strata} strata", ssvc,
-                             sentry.engine, x, sreqs)
+    sresps = _await_served(f"{strat_model.n_strata} strata", ssvc, sreqs)
     ssvc.stop()
     sst = ssvc.stats()
     check(sst["health"] == "SERVING" and sst["error_count"] == 0,
           "stratified service health")
     serve_strat = ops.launch_counts()
     _check_counts("stratified serve path", serve_strat, {
-        "survival_curves_stratified": ladder + sst["n_batches"]
-        + strat_ok["direct_calls"]})
+        "survival_curves_stratified": ladder + sst["n_batches"]})
+    strat_ok = _check_served(f"{strat_model.n_strata} strata", ssvc,
+                             sentry.engine, x, sreqs, sresps)
     out["correct"] = {"1 stratum": resps_ok,
                       f"{strat_model.n_strata} strata": strat_ok}
     out["launches"] = {"serve": serve, "serve_stratified": serve_strat}
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 12: the deep-survival serving path
+# ---------------------------------------------------------------------------
+
+def _profiled_batch(fn) -> dict:
+    """One call of ``fn`` under torch.profiler after a warm-up call: wall
+    and device-busy ms, the idle share, and the five kernels with the most
+    device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kernels = [(e.key, e.device_time_total / 1e3)
+               for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    busy = sum(ms for _, ms in kernels)
+    check(busy > 0, "torch.profiler recorded no device activity")
+    top = sorted(kernels, key=lambda kv: -kv[1])[:5]
+    return {"wall_ms": wall, "busy_ms": busy, "idle": 1 - busy / wall,
+            "top_kernels_ms": [[k[:60], ms] for k, ms in top]}
+
+
+GEMM_WEIGHTS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down", "w_in",
+                "w_out")
+
+
+def _gemm_flops(model, batches: int) -> float:
+    """2 x tokens x the layers' matmul weights (attention's q/k/v/o, the
+    MLP's, mamba's in and out projections) over ``batches`` batches: the
+    weight GEMMs of the forward, without attention's scores, the SSD's
+    einsums and the embedding gather."""
+    weights = sum(p.numel() for name, p in model.layers.named_parameters()
+                  if name.rsplit(".", 1)[-1] in GEMM_WEIGHTS)
+    return 2.0 * batches * DEEP_BATCH * DEEP_SEQ * weights
+
+
+def _backbone(dcfg):
+    """The deep-survival backbone of ``dcfg`` at full width with its Cox
+    head, drawn on the card from generators seeded SEED."""
+    from repro_torch.models import build_model
+    from repro_torch.survival import deep
+
+    return deep.init_state(build_model(deep.model_config(dcfg),
+                                       device="cuda"), SEED)
+
+
+def _float32_twin(model):
+    """``model``'s weights and Cox head in float32, in a model built on
+    the card without drawing any."""
+    import copy
+
+    from repro_torch.models import build_model
+
+    twin = build_model(model.cfg.scaled(dtype="float32"), device="cuda")
+    twin.cox_head = copy.deepcopy(model.cox_head)
+    twin.load_state_dict({k: v.float() for k, v in
+                          model.state_dict().items()})
+    return twin
+
+
+def _against_float32(model, stream, start: int, n_batches: int) -> dict:
+    """Pooled features and risks of ``model`` (bfloat16) against its
+    float32 twin over ``n_batches`` batches from ``start``: the relative
+    errors and both forwards' seconds."""
+    import numpy as np
+    import torch
+
+    from repro_torch.survival import deep
+
+    twin = _float32_twin(model)
+    runs = []
+    for m in (model, twin):
+        _timed(lambda: deep.collect_features(m, stream, start, 1))
+        runs.append(_timed(lambda: deep.collect_features(
+            m, stream, start, n_batches)))
+    (got, seconds), (want, seconds32) = runs
+    del twin
+    torch.cuda.empty_cache()
+    f, f32 = got["features"], want["features"]
+    check(f.shape == (n_batches * stream.batch, model.cfg.d_model)
+          and bool(np.all(np.isfinite(f))), f"{model.cfg.name}: features")
+    return {"seconds": seconds, "seconds_float32": seconds32,
+            "features_rel_err": float(np.linalg.norm(f - f32)
+                                      / np.linalg.norm(f32)),
+            "features_max_rel_err": float(np.max(np.abs(f - f32))
+                                          / np.max(np.abs(f32))),
+            "risk_max_rel_err": float(
+                np.max(np.abs(got["risk_deep"] - want["risk_deep"]))
+                / np.max(np.abs(want["risk_deep"])))}
+
+
+def dense_backbone() -> dict:
+    """qwen2.5-3b at full width (12 layers, vocab 2,048): the bfloat16
+    forward against a float32 forward of the same weights, on the card."""
+    import torch
+
+    from repro_torch.data.pipeline import SurvivalTextStream
+    from repro_torch.survival import deep
+
+    dcfg = deep.DeepSurvivalConfig(arch=DENSE_ARCH, full=True,
+                                   seq=DEEP_SEQ, batch=DEEP_BATCH)
+    model = _backbone(dcfg)
+    cfg = model.cfg
+    check((cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+           cfg.d_ff, cfg.qkv_bias, cfg.rope_theta, cfg.tie_embeddings,
+           cfg.n_layers, cfg.vocab_size, cfg.dtype)
+          == (2048, 16, 2, 128, 11008, True, 1e6, True, 12, 2048,
+              "bfloat16"), f"{DENSE_ARCH} config: {cfg}")
+    n_params = sum(p.numel() for p in model.parameters())
+    stream = SurvivalTextStream(cfg.vocab_size, dcfg.seq, dcfg.batch,
+                                seed=dcfg.seed)
+    cmp = _against_float32(model, stream, dcfg.steps, DENSE_BATCHES)
+    seconds, seconds32 = cmp["seconds"], cmp["seconds_float32"]
+    err = cmp["features_rel_err"]
+    tokens = DEEP_BATCH * DEEP_SEQ
+    flops = _gemm_flops(model, DENSE_BATCHES)
+    out = {"arch": cfg.name, "params": n_params,
+           "s_per_batch": seconds / DENSE_BATCHES,
+           "s_per_batch_float32": seconds32 / DENSE_BATCHES,
+           "tokens_per_s": tokens * DENSE_BATCHES / seconds,
+           "gemm_tflop_per_batch": flops / DENSE_BATCHES / 1e12,
+           "gemm_tflops": flops / seconds / 1e12,
+           "gemm_tflops_float32": flops / seconds32 / 1e12,
+           **{k: cmp[k] for k in ("features_rel_err", "features_max_rel_err",
+                                  "risk_max_rel_err")}}
+    log(f"  {cfg.name} at full width ({n_params / 1e6:.1f}M parameters, "
+        f"{cfg.n_layers} layers, bfloat16): {out['s_per_batch']:.4f} s a "
+        f"featurized batch of {DEEP_BATCH} x {DEEP_SEQ} "
+        f"({out['tokens_per_s']:.0f} "
+        f"tokens/s; weight GEMMs {out['gemm_tflop_per_batch']:.2f} TFLOP a "
+        f"batch, {out['gemm_tflops']:.1f} TFLOP/s = "
+        f"{out['gemm_tflops'] * 1e12 / BF16_OPS_PER_S:.1%} of the bfloat16 "
+        f"peak), float32 {out['s_per_batch_float32']:.4f} s "
+        f"({out['gemm_tflops_float32']:.1f} TFLOP/s = "
+        f"{out['gemm_tflops_float32'] * 1e12 / FP32_OPS_PER_S:.1%} of the "
+        f"float32 peak); pooled "
+        f"features against the float32 forward: ||diff|| / ||f32|| "
+        f"{err:.3e} (tol {DENSE_BF16_RTOL:.0e}), max |diff| / max |f32| "
+        f"{out['features_max_rel_err']:.3e}, risk "
+        f"{out['risk_max_rel_err']:.3e}")
+    check(err <= DENSE_BF16_RTOL, f"{DENSE_ARCH}: bfloat16 features differ "
+          f"from float32 by {err:.3e}")
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def deep_phase() -> dict:
+    """Phase 12: featurize on mamba2-130m at full width (held against its
+    float32 twin), refit k-sparse (held against the plain route), export,
+    serve through ModelRegistry/RiskService with exact launch counts; then
+    the dense backbone. Returns its numbers and launches."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import beam, cox
+    from repro_torch.data.pipeline import SurvivalTextStream
+    from repro_torch.kernels import ops
+    from repro_torch.obs import trace
+    from repro_torch.serving import ModelRegistry, RiskService
+    from repro_torch.survival import deep, metrics
+
+    log("phase 12: the deep-survival serving path")
+    dcfg = deep.DeepSurvivalConfig(full=True, seq=DEEP_SEQ,
+                                   batch=DEEP_BATCH)
+    model = _backbone(dcfg)
+    cfg = model.cfg
+    check((cfg.name, cfg.d_model, cfg.ssm_expand, cfg.ssm_state,
+           cfg.ssm_head_dim, cfg.ssm_chunk, cfg.n_layers, cfg.vocab_size,
+           cfg.dtype) == ("mamba2-130m", 768, 2, 128, 64, 128, 12, 2048,
+                          "bfloat16"), f"backbone config: {cfg}")
+    stream = SurvivalTextStream(cfg.vocab_size, dcfg.seq, dcfg.batch,
+                                seed=dcfg.seed)
+    start, n_feat = dcfg.steps, DEEP_BATCHES * dcfg.batch
+    # the shapes this path gives its kernels are those phase 2 checked
+    check((n_feat, cfg.d_model, dcfg.k, dcfg.grid_size)
+          == (DEEP_N, DEEP_D, DEEP_K, DEEP_GRID),
+          "phase 12's shapes are not those phase 2 checked")
+    work = ROOT / "build" / "chip_smoke" / "deep"
+    work.mkdir(parents=True, exist_ok=True)
+    out = {"arch": cfg.name,
+           "params": sum(p.numel() for p in model.parameters())}
+    _timed(lambda: deep.collect_features(model, stream, start, 1))
+    torch.cuda.reset_peak_memory_stats()
+
+    ops.reset_launch_counts()
+    held, seconds = _timed(lambda: deep.collect_features(
+        model, stream, start, DEEP_BATCHES))
+    out["featurize"] = {
+        "sequences": n_feat, "s_per_batch": seconds / DEEP_BATCHES,
+        "tokens_per_s": n_feat * DEEP_SEQ / seconds,
+        "gemm_tflops": _gemm_flops(model, DEEP_BATCHES) / seconds / 1e12,
+        "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    feats = held["features"]
+    check(feats.shape == (n_feat, cfg.d_model) and feats.dtype == np.float32
+          and bool(np.all(np.isfinite(feats)))
+          and bool(np.all(np.isfinite(held["risk_deep"]))),
+          "featurized features")
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        spans = Path(tmp) / "trace.jsonl"
+        trace.configure(str(spans))
+        try:
+            refit, refit_s = _timed(lambda: deep.refit_and_export(
+                feats, held["time"], held["event"], k=dcfg.k,
+                beam_width=dcfg.beam_width, grid_size=dcfg.grid_size))
+            res, beta, art = refit
+        finally:
+            trace.configure(None)
+        size_s, candidates, scored = _beam_spans(spans)
+    serve_step = start + DEEP_BATCHES
+    fresh = deep.collect_features(model, stream, serve_step,
+                                  DEEP_SERVE_BATCHES)
+    f_new = fresh["features"]
+    path = art.save(str(work / "deep_v1"))
+    svc = RiskService(None, return_curves=True)
+    reg = ModelRegistry(svc)
+    check(reg.rollout("deep_v1", path) == 1, "the rollout is generation 1")
+    check(tuple(reg.prewarm_batches) == DEEP_CURVE_BS,
+          f"the served buckets {reg.prewarm_batches} are not those phase 2 "
+          f"checked")
+    engine = reg.engine()
+    svc.start()
+    reqs = _submit_rows(svc, f_new, len(f_new), SEED + 70)
+    resps = _await_served("deep artifact", svc, reqs)
+    svc.stop()
+    launched = ops.launch_counts()
+    path_calls = engine.calls
+
+    nnz = int((np.abs(beta) > 1e-8).sum())
+    blocks = beam.column_blocks(n_feat, cfg.d_model, feats.itemsize)
+    out["refit"] = {"k": dcfg.k, "beam_width": dcfg.beam_width,
+                    "seconds": refit_s, "size_s": size_s,
+                    "candidates": candidates, "beams_scored": scored,
+                    "column_blocks": [b.stop - b.start for b in blocks],
+                    "nnz": nnz, "support": res.supports[-1].tolist(),
+                    "losses": res.losses}
+    log(f"  featurized {n_feat} sequences ({n_feat * DEEP_SEQ} tokens) on "
+        f"{cfg.name} at full width ({out['params'] / 1e6:.1f}M parameters,"
+        f" {cfg.n_layers} layers, bfloat16): "
+        f"{out['featurize']['s_per_batch']:.4f} s a "
+        f"batch of {DEEP_BATCH} x {DEEP_SEQ}, "
+        f"{out['featurize']['tokens_per_s']:.0f} tokens/s (weight GEMMs at "
+        f"{out['featurize']['gemm_tflops']:.1f} TFLOP/s), peak "
+        f"{out['featurize']['peak_gb']:.2f} GB")
+    log(f"  refit on the ({n_feat}, {cfg.d_model}) panel, k {dcfg.k}, beam "
+        f"width {dcfg.beam_width} ({len(blocks)} column block(s) of "
+        f"{out['refit']['column_blocks']}): {refit_s:.2f} s with the "
+        f"artifact; seconds per support size "
+        + ", ".join(f"{v:.3f}" for v in size_s)
+        + f"; candidates {candidates}; support {res.supports[-1].tolist()},"
+        f" {nnz} nonzeros, losses {res.losses[0]:.4f} -> "
+        f"{res.losses[-1]:.4f}")
+    check(len(size_s) == dcfg.k and nnz <= dcfg.k and art.is_sparse
+          and art.k == nnz and art.p == cfg.d_model
+          and art.n_grid == dcfg.grid_size
+          and bool(np.all(np.isfinite(res.losses)))
+          and bool(np.all(np.diff(res.losses)
+                          <= MONO_RTOL * np.abs(res.losses[:-1])))
+          and bool(np.all(np.diff(art.base_cumhaz, axis=1) >= -1e-6)),
+          "the refit or its artifact")
+
+    st = svc.stats()
+    log(f"  served {len(reqs)} requests of pooled features from "
+        f"{DEEP_SERVE_BATCHES} further batches through ModelRegistry and "
+        f"RiskService in {st['n_batches']} batches (p50 "
+        f"{st['latency_p50_ms']:.3f} ms, p99 {st['latency_p99_ms']:.3f} "
+        f"ms)")
+    # sparse_refit runs beam_search with its defaults, as the reference's
+    defaults = inspect.signature(beam.beam_search).parameters
+    sweeps = defaults["finetune_sweeps"].default
+    steps = defaults["score_steps"].default
+    _check_counts("deep-survival path", launched, {
+        "cox_coord": sweeps * sum(size * c for size, c in
+                                  enumerate(candidates, 1)),
+        "lipschitz": sum(candidates) + 1,
+        "revcumsum": sum(scored) * (2 * steps + 1) * len(blocks),
+        "survival_curves": path_calls})
+    check(path_calls == len(reg.prewarm_batches) + st["n_batches"],
+          f"engine calls {path_calls}: not the warmed buckets and the "
+          f"service's batches")
+    out["launches"] = launched
+
+    # the checks below launch kernels of their own, after the path's
+    # counts were read
+    served = _check_served("deep artifact", svc, engine, f_new, reqs,
+                           resps, beta=beta)
+    out["serve"] = {"requests": len(reqs), "batches": st["n_batches"],
+                    "p50_ms": st["latency_p50_ms"],
+                    "p99_ms": st["latency_p99_ms"], **served}
+    compare_selection(cox.prepare(feats, held["time"], held["event"]),
+                      "deep refit", DEEP_COMPARE)
+    twin = _against_float32(model, stream, serve_step, DEEP_TWIN_BATCHES)
+    out["float32_twin"] = twin
+    log(f"  {cfg.name}'s pooled features on {DEEP_TWIN_BATCHES} batches "
+        f"against its float32 twin (the same weights): ||diff|| / ||f32|| "
+        f"{twin['features_rel_err']:.3e} (tol {SSM_BF16_RTOL:.0e}), max "
+        f"|diff| / max |f32| {twin['features_max_rel_err']:.3e}, risk "
+        f"{twin['risk_max_rel_err']:.3e}; float32 "
+        f"{twin['seconds_float32'] / DEEP_TWIN_BATCHES:.4f} s a batch")
+    check(twin["features_rel_err"] <= SSM_BF16_RTOL,
+          f"{cfg.name}: bfloat16 features differ from float32 by "
+          f"{twin['features_rel_err']:.3e}")
+
+    out["cindex_deep"] = metrics.cindex(fresh["time"], fresh["event"],
+                                        fresh["risk_deep"])
+    out["cindex_sparse"] = metrics.cindex(fresh["time"], fresh["event"],
+                                          f_new @ beta)
+    log(f"  held-out c-index on the {len(f_new)} served sequences (an "
+        f"untrained backbone, reported, not gated): deep head "
+        f"{out['cindex_deep']:.4f}, sparse refit "
+        f"{out['cindex_sparse']:.4f}")
+    out["profiled_batch"] = _profiled_batch(lambda: deep.collect_features(
+        model, stream, serve_step, 1))
+    log(f"  one featurized batch profiled: wall "
+        f"{out['profiled_batch']['wall_ms']:.2f} ms, device busy "
+        f"{out['profiled_batch']['busy_ms']:.2f} ms -> idle "
+        f"{out['profiled_batch']['idle']:.1%}; top kernels "
+        f"{out['profiled_batch']['top_kernels_ms']}")
+    del model
+    torch.cuda.empty_cache()
+    out["dense"] = dense_backbone()
     return out
 
 
@@ -1960,24 +2391,23 @@ def _beam_spans(path: Path) -> tuple:
             [r["attrs"]["n_candidates"] for r in sizes], scores)
 
 
-def compare_selection(data) -> None:
-    """The selection path's kernel route against its plain route at
-    SELECT_COMPARE's depth. Run after the path's counts are read: these
+def compare_selection(data, what: str = "selection",
+                      params=SELECT_COMPARE) -> None:
+    """The selection path's kernel route against its plain route with
+    ``beam_search(**params)``. Run after the path's counts are read: these
     launches only compare."""
     import numpy as np
     import torch
 
     from repro_torch.core import beam, cox
 
-    log(f"selection: kernel path against the plain path "
-        f"({SELECT_COMPARE})")
-    kern, again, plain = (beam.beam_search(data, use_kernel=use,
-                                           **SELECT_COMPARE)
+    log(f"{what}: kernel path against the plain path ({params})")
+    kern, again, plain = (beam.beam_search(data, use_kernel=use, **params)
                           for use in (True, True, False))
     same = (kern.losses == again.losses and all(
         np.array_equal(a, b) for a, b in zip(kern.betas, again.betas)))
-    check(same, "selection: the kernel path did not repeat its bits")
-    zero = torch.zeros(data.n, device="cuda")
+    check(same, f"{what}: the kernel path did not repeat its bits")
+    zero = torch.zeros(data.n, device=data.device)
     prev = float(cox.loss_from_eta(data, zero))
     for size, (ks, ps, kl, pl) in enumerate(zip(
             kern.supports, plain.supports, kern.losses, plain.losses), 1):
@@ -1987,10 +2417,10 @@ def compare_selection(data) -> None:
             f"{abs(kl - pl):.4f} = {abs(kl - pl) / decrease:.3e} of the "
             f"size's decrease {decrease:.4f} (tol {SELECT_DTOL:.0e}); "
             f"a second kernel run repeats the bits: {same}")
-        check(np.array_equal(ks, ps), f"selection size {size}: supports "
+        check(np.array_equal(ks, ps), f"{what} size {size}: supports "
               f"differ")
         check(decrease > 0 and abs(kl - pl) <= SELECT_DTOL * decrease,
-              f"selection size {size}: losses differ")
+              f"{what} size {size}: losses differ")
         prev = pl
 
 
@@ -2224,7 +2654,9 @@ def main() -> int:
     batch_errs = check_cox_batch()
     errs["cox_batch"] = batch_errs["float32"]
     errs_bf16["cox_batch"] = batch_errs["bfloat16"]
-    errs["lipschitz"] = check_lipschitz()
+    errs["lipschitz"] = max(check_lipschitz(), check_lipschitz(
+        ns=(DEEP_N,), ps=tuple(range(1, DEEP_K + 1)) + (DEEP_D,),
+        launch_shape=False))
     errs["revcumsum"] = max(errs["revcumsum"], check_selection_scans(
         selection_scan_shapes()))
 
@@ -2284,6 +2716,17 @@ def main() -> int:
     launches["omp"] = select["launches"]["omp_greedy"]
     base = baselines_phase(data, lam1, lam2)
     launches["path and baselines"] = base["launches"]
+    del data
+    torch.cuda.empty_cache()
+
+    t12 = time.perf_counter()
+    deep_out = deep_phase()
+    deep_out["seconds"] = time.perf_counter() - t12
+    log(f"  phase 12 took {deep_out['seconds']:.1f} s")
+    launches["deep survival"] = deep_out["launches"]
+    for name in ("revcumsum", "cox_coord", "lipschitz", "survival_curves"):
+        check(deep_out["launches"][name] > 0,
+              f"{name} did not launch on the deep-survival path")
     log(f"  total {time.perf_counter() - t_start:.1f} s")
 
     kernels = []
@@ -2314,6 +2757,7 @@ def main() -> int:
         "support_f1": select["f1"],
         "revcumsum_at_block": select["revcumsum_at_block"],
         "baselines": base["steps"]}))
+    print(json.dumps({"deep": deep_out}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -2,16 +2,19 @@
 
 Both packages speak numpy at their edges, so state moves as numpy arrays:
 data into a time-sorted ``CoxData``, a reference artifact's arrays into the
-port's ``SurvivalModel``, and coefficients onto a device.
+port's ``SurvivalModel``, coefficients onto a device, and a backbone's
+param tree into the port's ``Model`` state.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Any, Dict, Mapping
 
 import numpy as np
 import torch
 
+from .configs.base import ModelConfig
 from .core.cox import CoxData, prepare
+from .models.model import Model
 from .serving.artifacts import ARRAY_FIELDS, SurvivalModel
 
 
@@ -41,3 +44,67 @@ def model_from_reference(arrays: Dict[str, np.ndarray],
 def beta_to_device(beta: np.ndarray, device="cuda") -> torch.Tensor:
     """Coefficients as a tensor on ``device``, in their own float type."""
     return torch.as_tensor(np.asarray(beta), device=device)
+
+
+def _leaves(tree: Mapping[str, Any], prefix: str = ""):
+    for key, value in tree.items():
+        name = f"{prefix}{key}"
+        if isinstance(value, Mapping):
+            yield from _leaves(value, name + ".")
+        else:
+            yield name, value
+
+
+def _tensor(a) -> torch.Tensor:
+    """A host array as a tensor of the same type and shape (a copy);
+    bfloat16 (numpy's ``ml_dtypes`` type, which torch cannot read) passes
+    through float32, exactly."""
+    a = np.array(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+def model_params_from_jax(cfg: ModelConfig, params: Mapping[str, Any]
+                          ) -> Dict[str, torch.Tensor]:
+    """The port's ``Model`` state (``load_state_dict``'s argument, host
+    tensors) from the reference's param tree as numpy arrays.
+
+    The reference stacks its layers on a leading axis L (``params["layers"]``,
+    scanned); each layer i becomes ``layers.{i}.<name>``. A ``cox_head`` in
+    the tree (``deep.init_state`` puts it there) maps to the model's Cox
+    head, which the port's model must have attached before loading. Raises
+    on any leaf this leaves unused, any parameter it leaves unfilled, and
+    any shape or dtype that differs from the port's."""
+    want = Model(cfg, device="meta").state_dict()
+    if "cox_head" in params:
+        want.update({"cox_head.w": torch.empty(cfg.d_model, 1,
+                                               device="meta"),
+                     "cox_head.b": torch.empty((), device="meta")})
+    state: Dict[str, torch.Tensor] = {}
+    unused = []
+    for name, leaf in _leaves(params):
+        t = _tensor(leaf)
+        if name.startswith("layers."):
+            if t.shape[0] != cfg.n_layers:
+                raise ValueError(f"{name}: leading axis {t.shape[0]}, the "
+                                 f"config has {cfg.n_layers} layers")
+            names = [f"layers.{i}.{name[7:]}" for i in range(cfg.n_layers)]
+            parts = list(t)
+        else:
+            names, parts = [name], [t]
+        for key, part in zip(names, parts):
+            if key not in want:
+                unused.append(key)
+                continue
+            ref = want[key]
+            if part.shape != ref.shape or part.dtype != ref.dtype:
+                raise ValueError(
+                    f"{key}: {tuple(part.shape)} {part.dtype} in the tree, "
+                    f"{tuple(ref.shape)} {ref.dtype} in the port")
+            state[key] = part.contiguous()
+    missing = sorted(set(want) - set(state))
+    if unused or missing:
+        raise ValueError(f"leaves left unused: {sorted(unused)}; parameters "
+                         f"left unfilled: {missing}")
+    return state
