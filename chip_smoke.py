@@ -148,17 +148,44 @@ Phases, each printed as it runs; any failed check raises:
      48 in bfloat16 against a float32 forward of the same weights on the
      card, the pooled features within DENSE_BF16_RTOL. Its launches are
      the kernels line's "deep survival".
+  13. training on the card, after phase 12: ``deep.run`` at the
+     reference's defaults, uncut (``DeepSurvivalConfig(full=True)``:
+     mamba2-130m at full width, 12 layers, bfloat16, 150 steps of
+     ``SurvivalTextStream(2048, seq=48, batch=32)`` under the exact Cox
+     loss, lr 2e-3, warmup 20, remat on; the refit on 4 held-out batches,
+     k 8, beam width 4, grid 64): seconds a step (the median after step
+     10), tokens a second, peak memory, the first-10 and last-10 mean
+     loss (the last below the first), one profiled step's idle share and
+     top kernels; the counts, zeroed before the run, nothing during
+     training and exactly cox_coord, lipschitz and revcumsum as phase 9's
+     formulas give them for the refit; the artifact rolled out through
+     ``ModelRegistry`` into ``RiskService`` and the held-out rows served
+     (survival_curves the engine's calls, each answer equal to direct
+     ``engine.score``); both held-out c-indexes above 0.5. Then, as checks:
+     the loss and every gradient of a float32 twin (full widths, 2 layers)
+     on the card against the port on the CPU (GRAD_CARD_RTOL, TF32 off),
+     for both objectives; microbatch 4 against the full batch; 5 steps
+     saved through ``AsyncCheckpointer`` and resumed into a fresh model
+     (params and moments bit-equal, bfloat16 included; restored onto the
+     CPU too; the next step's loss within RESUME_RTOL); the launcher
+     ``launch.train.main`` at qwen2.5-3b's widths (12 layers, vocab 4,096,
+     20 steps of 8 x 64); and a one-rank NCCL world: ``fit_cd_sharded``
+     against ``fit_cd`` at n = 262,144, p = 1,000, ``sharded_grad_hess_all``,
+     ``compressed_psum`` and ``ScoringEngine(shard="auto")``. Its launches
+     are the kernels line's "train".
 
 Phase 2 also holds revcumsum at the selection path's (262,144, 1,000) and
 (262,144, block) panels and lipschitz at (262,144, 15) against their plain
-versions, and every kernel at the shapes phase 12 gives it: revcumsum on
-the (32,768, 768) refit panel, cox_coord at n = 32,768, lipschitz at
-(32,768, 1..8) and (32,768, 768), survival_curves at g = 64 for every
-served bucket b = 1..64. Kernel launch counts are zeroed just before each path (phases
-3-5, 5b, 11's two services, 7, 9's two calls, 10 and 12) and read just after
-it. The line before the last but four is one JSON object with phase 11's
-numbers, then one with the selection path's and phase 10's launch counts,
-then one with phase 12's numbers, then one with every kernel's numbers (its
+versions, and every kernel at the shapes phases 12 and 13 give it:
+revcumsum on the (32,768, 768) and (128, 768) refit panels and at (128,
+256), cox_coord at n = 32,768 and 128, lipschitz at (32,768 or 128,
+1..8) and (32,768 or 128, 768), survival_curves at g = 64 for every
+served bucket b = 1..64. Kernel launch counts are zeroed just before each
+path (phases 3-5, 5b, 11's two services, 7, 9's two calls, 10, 12 and 13)
+and read just after it. The line before the last but five is one JSON
+object with phase 11's numbers, then one with the selection path's and
+phase 10's launch counts, then one with phase 12's numbers, then one with
+phase 13's, then one with every kernel's numbers (its
 ``launches_by_path`` gives every path's count), then the card's name and
 power limit; the last is ``{"ok": true, "device": {...}}``. Without CUDA,
 or without the repository beside it, the script exits nonzero and prints
@@ -281,6 +308,38 @@ DENSE_BF16_RTOL = 3e-2   # ||f_bf16 - f_f32|| / ||f_f32|| over the pooled
                          # a half-ulp 2^-9 ~ 2e-3 a rounding, compounded over
                          # 12 layers (4.6e-3 at 2 layers, reduced width, on
                          # the CPU)
+
+# phase 13: training on the card. deep.run at the reference's defaults
+# (DeepSurvivalConfig(full=True): mamba2-130m at its published widths, 12
+# layers, vocab 2,048, bfloat16; 150 steps of 32 x 48, lr 2e-3, warmup 20;
+# the refit on 4 held-out batches, k 8, beam width 4, grid 64), uncut; the
+# shapes it gives its kernels, which phase 2 checks: the (TRAIN_N, DEEP_D)
+# refit panel, cox_coord at n = TRAIN_N, lipschitz at (TRAIN_N, 1..8) and
+# (TRAIN_N, 768), the curves at g = 64 for every served bucket
+TRAIN_N = 4 * 32
+TRAIN_SCAN_BLOCK = 256   # revcumsum also at (TRAIN_N, 256) column blocks
+TRAIN_TIMED_FROM = 10    # seconds a step: the median after step 10
+TWIN_LAYERS = 2          # the float32 twin: full widths, 2 layers
+GRAD_CARD_RTOL = 1e-3    # every gradient on the card against the port on
+                         # the CPU, max |diff| <= GRAD_CARD_RTOL * max |cpu|
+                         # per parameter, TF32 off: float32 sums over 32 x
+                         # 48 tokens and 768-wide rows in other orders (the
+                         # CPU against the reference: ~5e-6 at reduced
+                         # widths); the Cox head's bias, whose gradient is
+                         # zero in exact arithmetic, within GRAD_CARD_ATOL
+GRAD_CARD_ATOL = 1e-6
+MICRO_LOSS_RTOL = 1e-4   # microbatch 4 against the full batch, as
+MICRO_P_RTOL, MICRO_P_ATOL = 2e-3, 2e-4  # tests/test_runtime.py holds it
+RESUME_RTOL = 1e-6       # the resumed step's loss (tests/test_runtime.py)
+CKPT_STEPS = 5
+LAUNCH_ARCH, LAUNCH_LAYERS, LAUNCH_STEPS = "qwen2.5-3b", 12, 20
+LAUNCH_BATCH, LAUNCH_SEQ = 8, 64
+SHARDED_SWEEPS = 2
+SHARDED_RTOL = 1e-2      # objective, fit_cd_sharded against fit_cd
+                         # (tests/test_distributed.py)
+SHARDED_GH_RTOL = 1e-3   # sharded_grad_hess_all against grad_hess_all,
+                         # max |diff| / max |ref|: float32 sums over
+                         # 262,144 rows in two orders
 
 # the TPU kernel each CUDA kernel replaces (its pallas_call), and the path
 # whose launch count the kernels line reports
@@ -510,7 +569,8 @@ def check_kernels(coord_ns=None, curve_bs=CURVE_BS,
 
     tile = coord_mod.TILE
     if coord_ns is None:
-        coord_ns = (1, tile - 1, tile, tile + 1, DEEP_N, N, 1_048_577)
+        coord_ns = (1, tile - 1, tile, tile + 1, TRAIN_N, DEEP_N, N,
+                    1_048_577)
     for n in coord_ns:
         for ties in COORD_TIES:
             x = randn(n)
@@ -653,11 +713,11 @@ def selection_scan_shapes():
     from repro_torch.core import beam
 
     shapes = []
-    for n, p in ((N, P), (DEEP_N, DEEP_D)):
+    for n, p in ((N, P), (DEEP_N, DEEP_D), (TRAIN_N, DEEP_D)):
         widths = {c.stop - c.start for c in beam.column_blocks(n, p, 4)}
         shapes += [(n, p)] + [(n, m) for m in sorted(widths, reverse=True)
                               if m != p]
-    return tuple(shapes)
+    return tuple(shapes) + ((TRAIN_N, TRAIN_SCAN_BLOCK),)
 
 
 def check_selection_scans(shapes) -> float:
@@ -1634,10 +1694,12 @@ def serving_phase(model, strat_model, x, t, delta) -> dict:
 # Phase 12: the deep-survival serving path
 # ---------------------------------------------------------------------------
 
-def _profiled_batch(fn) -> dict:
+def _profiled_batch(fn, host: bool = False) -> dict:
     """One call of ``fn`` under torch.profiler after a warm-up call: wall
-    and device-busy ms, the idle share, and the five kernels with the most
-    device time."""
+    and device-busy ms, the idle share, the device kernels launched and the
+    five with the most device time; with ``host``, also the host's
+    operators with the most self time over a further call profiled on the
+    host alone (the profiler's own cost included)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1649,18 +1711,33 @@ def _profiled_batch(fn) -> dict:
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    kernels = [(e.key, e.device_time_total / 1e3)
-               for e in prof.key_averages()
+    events = prof.key_averages()
+    kernels = [(e.key, e.device_time_total / 1e3, e.count) for e in events
                if e.device_type == DeviceType.CUDA]
-    busy = sum(ms for _, ms in kernels)
+    busy = sum(ms for _, ms, _ in kernels)
     check(busy > 0, "torch.profiler recorded no device activity")
     top = sorted(kernels, key=lambda kv: -kv[1])[:5]
-    return {"wall_ms": wall, "busy_ms": busy, "idle": 1 - busy / wall,
-            "top_kernels_ms": [[k[:60], ms] for k, ms in top]}
+    out = {"wall_ms": wall, "busy_ms": busy, "idle": 1 - busy / wall,
+           "kernels": sum(c for _, _, c in kernels),
+           "gemm_ms": sum(ms for k, ms, _ in kernels
+                          if any(w in k.lower() for w in GEMM_KERNELS)),
+           "top_kernels_ms": [[k[:60], ms] for k, ms, _ in top]}
+    if host:
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        ops = sorted(((e.key, e.self_cpu_time_total / 1e3, e.count)
+                      for e in prof.key_averages()),
+                     key=lambda kv: -kv[1])[:8]
+        out["host_top_ms"] = [[k[:50], ms, c] for k, ms, c in ops]
+    return out
 
 
 GEMM_WEIGHTS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down", "w_in",
                 "w_out")
+# name fragments of cuBLAS's matmul kernels on Hopper (a profiled window's
+# "gemm_ms" sums their device time)
+GEMM_KERNELS = ("gemm", "nvjet", "cutlass")
 
 
 def _gemm_flops(model, batches: int) -> float:
@@ -1680,7 +1757,7 @@ def _backbone(dcfg):
     from repro_torch.survival import deep
 
     return deep.init_state(build_model(deep.model_config(dcfg),
-                                       device="cuda"), SEED)
+                                       device="cuda"), SEED).model
 
 
 def _float32_twin(model):
@@ -1958,6 +2035,524 @@ def deep_phase() -> dict:
     del model
     torch.cuda.empty_cache()
     out["dense"] = dense_backbone()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 13: training on the card
+# ---------------------------------------------------------------------------
+
+def _max_rel(got: dict, want: dict, atol: dict) -> tuple:
+    """(worst max |got - want| / max |want| over the keys, its key); a key
+    of ``atol`` within its absolute tolerance counts as 0."""
+    worst, at = -1.0, None
+    for k, w in want.items():
+        g = got[k].detach().double().cpu()
+        w = w.detach().double().cpu()
+        err = float((g - w).abs().max())
+        rel = 0.0 if err <= atol.get(k, -1.0) \
+            else err / max(float(w.abs().max()), 1e-30)
+        if rel > worst:
+            worst, at = rel, k
+    return worst, at
+
+
+def _step_timer(times: list):
+    """An ``on_step`` callback that appends each step's seconds (the loss
+    is read on the host before it fires, so the card has finished)."""
+    last = [time.perf_counter()]
+
+    def on_step(step, metrics):
+        now = time.perf_counter()
+        times.append(now - last[0])
+        last[0] = now
+
+    return on_step
+
+
+def _twin(cfg, objective: str, seed: int, device: str):
+    """The float32 twin: ``cfg`` at TWIN_LAYERS layers in float32, its
+    weights (and Cox head for ``cox``) drawn on the CPU from ``seed`` and
+    copied to ``device``."""
+    from repro_torch.models.model import Model
+    from repro_torch.survival import deep
+
+    tcfg = cfg.scaled(n_layers=TWIN_LAYERS, dtype="float32")
+    cpu = deep.init_state(Model(tcfg, device="cpu"), seed)
+    if device == "cpu":
+        return cpu
+    st = deep.init_state(Model(tcfg, device=device), seed)
+    st.model.load_state_dict({k: v.to(device) for k, v in
+                              cpu.model.state_dict().items()})
+    return st
+
+
+def _grads_on(state, objective: str, batch):
+    """(loss, {name: grad}) of ``objective`` at ``state``'s model."""
+    from repro_torch.data.pipeline import put_batch
+    from repro_torch.train import trainer
+
+    model = state.model
+    loss, _ = trainer.make_loss_fn(model, objective)(
+        put_batch(batch, model.device))
+    return loss.detach(), trainer._grads(loss, dict(model.named_parameters()))
+
+
+def _train_checks(cfg) -> dict:
+    """Gradients on the card against the CPU and microbatch 4 against the
+    full batch, on the float32 twin of ``cfg`` (TF32 is off)."""
+    import copy
+
+    import torch
+
+    from repro_torch.configs import TrainConfig
+    from repro_torch.data.pipeline import SurvivalTextStream, TokenTaskStream
+    from repro_torch.train import trainer
+
+    out = {}
+    streams = {"cox": SurvivalTextStream(cfg.vocab_size, 48, 32, seed=3),
+               "lm": TokenTaskStream(cfg.vocab_size, 48, 32, seed=3)}
+    for objective, stream in streams.items():
+        b = stream.batch_for_step(0)
+        card = _twin(cfg, objective, SEED, "cuda")
+        cpu = _twin(cfg, objective, SEED, "cpu")
+        loss, g = _grads_on(card, objective, b)
+        loss_c, g_c = _grads_on(cpu, objective, b)
+        worst, at = _max_rel(g, g_c, {"cox_head.b": GRAD_CARD_ATOL})
+        loss_err = abs(float(loss) - float(loss_c)) / abs(float(loss_c))
+        out[f"grads_{objective}"] = {"loss": float(loss),
+                                     "loss_rel_err": loss_err,
+                                     "worst_grad_rel_err": worst,
+                                     "worst_at": at}
+        log(f"  gradients on the card against the CPU ({objective}, "
+            f"{cfg.name} at full width, {TWIN_LAYERS} layers, float32, one "
+            f"batch of 32 x 48): loss {float(loss):.6f} rel err "
+            f"{loss_err:.3e}; worst gradient max |diff| / max |cpu| "
+            f"{worst:.3e} at {at} (tol {GRAD_CARD_RTOL:.0e})")
+        check(loss_err <= GRAD_CARD_RTOL and worst <= GRAD_CARD_RTOL,
+              f"{objective}: gradients on the card differ from the CPU's")
+        del cpu, g_c
+    # microbatch 4 against the full batch, the lm objective
+    b = streams["lm"].batch_for_step(1)
+    s1 = card
+    s2 = copy.deepcopy(card)
+    tc = dict(learning_rate=1e-3, warmup_steps=5)
+    s1, m1 = trainer.make_train_step(s1.model, TrainConfig(
+        microbatch=4, **tc), "lm")(s1, b)
+    s2, m2 = trainer.make_train_step(s2.model, TrainConfig(**tc), "lm")(
+        s2, b)
+    loss_err = abs(float(m1["loss"]) - float(m2["loss"])) \
+        / abs(float(m2["loss"]))
+    p1, p2 = (dict(s.model.named_parameters()) for s in (s1, s2))
+    with torch.no_grad():
+        excess = max(float(((p1[k] - p2[k]).abs()
+                            - MICRO_P_RTOL * p2[k].abs()).max()) for k in p2)
+    out["microbatch"] = {"loss_rel_err": loss_err,
+                         "worst_param_excess": excess}
+    log(f"  microbatch 4 against the full batch on the card: loss rel err "
+        f"{loss_err:.3e} (tol {MICRO_LOSS_RTOL:.0e}); params: max(|diff| - "
+        f"{MICRO_P_RTOL:.0e} |p|) {excess:.3e} (tol {MICRO_P_ATOL:.0e})")
+    check(loss_err <= MICRO_LOSS_RTOL and excess <= MICRO_P_ATOL,
+          "microbatch 4 differs from the full batch")
+    del s1, s2, card
+    torch.cuda.empty_cache()
+    return out
+
+
+def _resume_check(cfg) -> dict:
+    """CKPT_STEPS steps of the deep-survival backbone (bfloat16, 12 layers),
+    saved through AsyncCheckpointer, resumed into a freshly built model:
+    params and moments bit-equal, the next step's loss within RESUME_RTOL;
+    the checkpoint restored onto the CPU as well."""
+    import shutil
+
+    import torch
+
+    from repro_torch.configs import TrainConfig
+    from repro_torch.data.pipeline import SurvivalTextStream
+    from repro_torch.models import build_model
+    from repro_torch.survival import deep
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train import fault_tolerance as ft
+    from repro_torch.train import trainer
+
+    dcfg = deep.DeepSurvivalConfig(full=True)
+    tc = TrainConfig(learning_rate=dcfg.learning_rate,
+                     warmup_steps=dcfg.warmup_steps, total_steps=dcfg.steps)
+    stream = SurvivalTextStream(cfg.vocab_size, dcfg.seq, dcfg.batch,
+                                seed=SEED + 13)
+    state = deep.init_state(build_model(cfg, device="cuda"), SEED + 13)
+    step_fn = trainer.make_train_step(state.model, tc, "cox")
+    for i in range(CKPT_STEPS):
+        state, _ = step_fn(state, stream.batch_for_step(i))
+    work = ROOT / "build" / "chip_smoke" / "ckpt"
+    shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    saver = ckpt.AsyncCheckpointer(str(work))
+    saver.save(CKPT_STEPS, state)
+    handed = time.perf_counter() - t0
+    saver.wait()
+    save_s = time.perf_counter() - t0
+    nbytes = sum(f.stat().st_size for f in work.rglob("*") if f.is_file())
+    t0 = time.perf_counter()
+    restored, start = ft.resume_or_init(
+        str(work), lambda: deep.init_state(build_model(cfg, device="cuda"),
+                                           SEED + 14))
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    check(start == CKPT_STEPS and restored.opt.step == CKPT_STEPS,
+          f"resumed at {start}")
+    pa, pb = (dict(s.model.named_parameters()) for s in (state, restored))
+    same = all(pa[k].dtype == pb[k].dtype and torch.equal(pa[k], pb[k])
+               and torch.equal(state.opt.m[k], restored.opt.m[k])
+               and torch.equal(state.opt.v[k], restored.opt.v[k])
+               for k in pa)
+    dtypes = sorted({str(p.dtype) for p in pb.values()})
+    check(same, "the restored params or moments are not bit-equal")
+    # the card's checkpoint onto the CPU (the port's elastic restore), into
+    # a tree of shapes on the meta device
+    meta = {"params": {k: torch.empty_like(p, device="meta")
+                       for k, p in pa.items()}}
+    on_cpu = ckpt.restore(str(work), meta, device="cpu")["params"]
+    same_cpu = all(on_cpu[k].device.type == "cpu"
+                   and torch.equal(p.cpu(), on_cpu[k]) for k, p in pa.items())
+    check(same_cpu, "the checkpoint restored onto the CPU differs")
+    del on_cpu, meta
+    b = stream.batch_for_step(CKPT_STEPS)
+    restored, m_res = trainer.make_train_step(restored.model, tc, "cox")(
+        restored, b)
+    state, m_direct = step_fn(state, b)
+    loss_err = abs(float(m_res["loss"]) - float(m_direct["loss"])) \
+        / abs(float(m_direct["loss"]))
+    lr = float(m_direct["lr"])
+    pa, pb = ({k: p.detach() for k, p in s.model.named_parameters()}
+              for s in (state, restored))
+    after_equal = all(torch.equal(pa[k], pb[k]) for k in pa)
+    # two steps from the same state may differ where the embedding's
+    # backward adds with atomics: each parameter within two of the step's
+    # moves (2 lr) plus one bfloat16 rounding of its value
+    excess = max(float(((pa[k].float() - pb[k].float()).abs()
+                        - 2 * lr - pa[k].float().abs() * 2.0 ** -8).max())
+                 for k in pa)
+    out = {"bytes": nbytes, "save_s": save_s, "save_handed_back_s": handed,
+           "restore_s": restore_s, "restored_dtypes": dtypes,
+           "bit_equal": same, "next_loss_rel_err": loss_err,
+           "params_after_step_bit_equal": after_equal,
+           "params_after_step_excess": excess}
+    log(f"  checkpoint of {CKPT_STEPS} steps ({nbytes / 1e6:.1f} MB; save "
+        f"{save_s:.3f} s, {handed:.3f} s before the caller steps on; "
+        f"restore into a fresh model {restore_s:.3f} s): params and "
+        f"moments bit-equal ({', '.join(dtypes)}): {same}; restored onto "
+        f"the CPU bit-equal: {same_cpu}; next step's loss rel err "
+        f"{loss_err:.3e} (tol {RESUME_RTOL:.0e}); params after that step "
+        f"bit-equal: {after_equal} (max |diff| - 2 lr - |p| 2^-8 = "
+        f"{excess:.3e}, tol 0)")
+    check(loss_err <= RESUME_RTOL, "the resumed step's loss differs")
+    check(excess <= 0.0, "params after the resumed step differ by more "
+          "than two steps' moves")
+    shutil.rmtree(work, ignore_errors=True)
+    del state, restored
+    torch.cuda.empty_cache()
+    return out
+
+
+def _launcher_check() -> dict:
+    """launch.train.main at qwen2.5-3b's published widths, 12 layers."""
+    import numpy as np
+    import torch
+
+    from repro_torch.data.pipeline import TokenTaskStream
+    from repro_torch.launch import train as train_cli
+    from repro_torch.configs import TrainConfig
+    from repro_torch.train import trainer
+
+    times: list = []
+    torch.cuda.reset_peak_memory_stats()
+    state, losses = train_cli.main([
+        "--arch", LAUNCH_ARCH, "--objective", "lm", "--scale",
+        f"n_layers={LAUNCH_LAYERS}", "--steps", str(LAUNCH_STEPS),
+        "--batch", str(LAUNCH_BATCH), "--seq", str(LAUNCH_SEQ),
+        "--log-every", "5", "--device", "cuda"],
+        on_step=_step_timer(times))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    cfg = state.model.cfg
+    check((cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_ff,
+           cfg.n_layers, cfg.vocab_size, cfg.dtype)
+          == (2048, 16, 2, 11008, LAUNCH_LAYERS, 4096, "bfloat16"),
+          f"launcher config: {cfg}")
+    check(len(losses) == LAUNCH_STEPS
+          and bool(np.all(np.isfinite(losses))), "launcher losses")
+    step_s = statistics.median(times[5:])
+    tokens = LAUNCH_BATCH * LAUNCH_SEQ
+    # forward, backward (2x) and the per-layer recompute of remat
+    flops = 8.0 * tokens * sum(
+        p.numel() for name, p in state.model.layers.named_parameters()
+        if name.rsplit(".", 1)[-1] in GEMM_WEIGHTS)
+    n_params = sum(p.numel() for p in state.model.parameters())
+    stream = TokenTaskStream(cfg.vocab_size, LAUNCH_SEQ, LAUNCH_BATCH)
+    step_fn = trainer.make_train_step(state.model, TrainConfig(
+        learning_rate=1e-3, warmup_steps=20, total_steps=LAUNCH_STEPS), "lm")
+    prof = _profiled_batch(lambda: step_fn(state, stream.batch_for_step(0)),
+                           host=True)
+    out = {"arch": cfg.name, "params": n_params, "s_per_step": step_s,
+           "tokens_per_s": tokens / step_s, "peak_gb": peak,
+           "gemm_tflop_per_step": flops / 1e12,
+           "gemm_tflops": flops / step_s / 1e12,
+           "gemm_tflops_device": flops / prof["gemm_ms"] / 1e9,
+           "first_loss": losses[0], "last_loss": losses[-1],
+           "profiled_step": prof}
+    log(f"  launch.train at {cfg.name}'s widths ({n_params / 1e6:.1f}M "
+        f"parameters, {cfg.n_layers} layers, bfloat16, batch "
+        f"{LAUNCH_BATCH} x {LAUNCH_SEQ}): {step_s:.4f} s a step (median "
+        f"after step 5), {out['tokens_per_s']:.0f} tokens/s, peak "
+        f"{peak:.2f} GB; weight GEMMs {out['gemm_tflop_per_step']:.2f} "
+        f"TFLOP a step, {out['gemm_tflops']:.1f} TFLOP/s over the step, "
+        f"{out['gemm_tflops_device']:.1f} TFLOP/s over the matmul kernels' "
+        f"device time ({prof['gemm_ms']:.2f} ms of the profiled step, "
+        f"all matmuls; "
+        f"{out['gemm_tflops_device'] * 1e12 / BF16_OPS_PER_S:.1%} of the "
+        f"bfloat16 peak); loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}; one profiled step: wall "
+        f"{prof['wall_ms']:.2f} ms, idle {prof['idle']:.1%}, "
+        f"{prof['kernels']} kernels, top {prof['top_kernels_ms']}; host "
+        f"operators by self time {prof['host_top_ms']}")
+    del state, step_fn
+    torch.cuda.empty_cache()
+    return out
+
+
+def _sharded_checks(x, t, delta, lam2: float, model) -> dict:
+    """A one-rank NCCL world (``launch.mesh.data_group``): fit_cd_sharded
+    against fit_cd, sharded_grad_hess_all against grad_hess_all on the
+    main path's rows with ties broken by their order (the sharded
+    functions' tie-free contract), compressed_psum against the int8 round
+    trip, and ScoringEngine(shard="auto") against the unsharded engine."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import convert
+    from repro_torch.core import cox, distributed, solvers
+    from repro_torch.launch import mesh
+    from repro_torch.serving import ScoringEngine
+    from repro_torch.train import compression
+
+    group = mesh.data_group("cuda")
+    check(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
+          "the data group is not a one-rank NCCL world")
+    data = convert.cox_data_from_numpy(x, t, delta, device="cuda")
+    order = torch.arange(data.n, dtype=torch.int32, device="cuda")
+    data = dataclasses.replace(data, risk_start=order, tie_end=order)
+    l2c, _, _ = solvers.constants(data, True)
+    _, sh_s = _timed(lambda: distributed.fit_cd_sharded(
+        data, l2c, group, lam2=lam2, n_sweeps=1))
+    (beta_sh, eta_sh), sh_s = _timed(lambda: distributed.fit_cd_sharded(
+        data, l2c, group, lam2=lam2, n_sweeps=SHARDED_SWEEPS))
+    f_sh = float(cox.loss_from_eta(data, eta_sh)
+                 + lam2 * torch.sum(beta_sh * beta_sh))
+    res, cd_s = _timed(lambda: solvers.fit_cd(data, lam2=lam2,
+                                              n_iters=SHARDED_SWEEPS))
+    f_ref = float(res.objective[-1])
+    f_err = abs(f_sh - f_ref) / max(1.0, abs(f_ref))
+    eta = data.x @ beta_sh
+    g_sh, h_sh = distributed.sharded_grad_hess_all(data, eta, group)
+    g_ref, h_ref = cox.grad_hess_all(data, eta)
+    gh_err = max(float((a - b).abs().max() / b.abs().max())
+                 for a, b in ((g_sh, g_ref), (h_sh, h_ref)))
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    y = torch.randn(1 << 20, device="cuda", generator=gen)
+    cps = compression.compressed_psum(y, group)
+    want, _ = compression.compress_decompress({"y": y},
+                                              {"y": torch.zeros_like(y)})
+    cps_same = torch.equal(cps, want["y"])
+    one = ScoringEngine(model, device="cuda")
+    auto = ScoringEngine(model, shard="auto", device="cuda")
+    feats = np.random.default_rng(SEED + 131).standard_normal(
+        (300, model.p)).astype(np.float32)
+    engine_same = all(np.array_equal(a, b) for a, b in zip(
+        one.score(feats, with_curves=True),
+        auto.score(feats, with_curves=True)))
+    dist.destroy_process_group()
+    out = {"fit_cd_sharded_s_per_sweep": sh_s / SHARDED_SWEEPS,
+           "fit_cd_s_per_sweep": cd_s / SHARDED_SWEEPS,
+           "objective_sharded": f_sh, "objective_fit_cd": f_ref,
+           "objective_rel_err": f_err, "grad_hess_rel_err": gh_err,
+           "compressed_psum_bit_equal": cps_same,
+           "engine_auto_shard": auto.shard,
+           "engine_bit_equal": engine_same}
+    log(f"  one-rank NCCL world: fit_cd_sharded {SHARDED_SWEEPS} sweeps at "
+        f"n={data.n}, p={data.p} ({out['fit_cd_sharded_s_per_sweep']:.3f} s "
+        f"a sweep; fit_cd {out['fit_cd_s_per_sweep']:.3f}): objective "
+        f"{f_sh:.4f} against {f_ref:.4f}, rel err {f_err:.3e} (tol "
+        f"{SHARDED_RTOL:.0e}); sharded_grad_hess_all against grad_hess_all "
+        f"{gh_err:.3e} (tol {SHARDED_GH_RTOL:.0e}); compressed_psum equal "
+        f"to the int8 round trip: {cps_same}; ScoringEngine(shard='auto') "
+        f"shard {auto.shard}, its scores of 300 rows of the trained "
+        f"artifact equal to the unsharded engine's bit for bit: "
+        f"{engine_same}")
+    check(f_err <= SHARDED_RTOL, "fit_cd_sharded's objective differs")
+    check(gh_err <= SHARDED_GH_RTOL, "sharded_grad_hess_all differs")
+    check(cps_same, "compressed_psum differs from the int8 round trip")
+    check(auto.shard == torch.cuda.device_count() == 1 and engine_same,
+          f"ScoringEngine(shard='auto'): shard {auto.shard}, scores equal "
+          f"{engine_same}")
+    return out
+
+
+def train_phase(x, t, delta, lam2: float) -> dict:
+    """Phase 13: deep.run at full width (train, featurize, refit, export)
+    with exact launch counts, the trained artifact served; then gradients
+    against the CPU, microbatching, checkpoint and resume, the launcher at
+    qwen2.5-3b's widths and the one-rank sharded checks. Returns its
+    numbers and launches."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import TrainConfig
+    from repro_torch.core import beam
+    from repro_torch.kernels import ops
+    from repro_torch.obs import trace
+    from repro_torch.serving import ModelRegistry, RiskService
+    from repro_torch.survival import deep
+    from repro_torch.train import trainer
+
+    log("phase 13: training on the card")
+    dcfg = deep.DeepSurvivalConfig(full=True)
+    cfg = deep.model_config(dcfg)
+    check((cfg.name, cfg.d_model, cfg.ssm_expand, cfg.ssm_state,
+           cfg.ssm_head_dim, cfg.ssm_chunk, cfg.n_layers, cfg.vocab_size,
+           cfg.dtype) == ("mamba2-130m", 768, 2, 128, 64, 128, 12, 2048,
+                          "bfloat16"), f"backbone config: {cfg}")
+    n_held = dcfg.refit_batches * dcfg.batch
+    # the shapes this path gives its kernels are those phase 2 checked
+    check((n_held, cfg.d_model, dcfg.k, dcfg.grid_size)
+          == (TRAIN_N, DEEP_D, DEEP_K, DEEP_GRID),
+          "phase 13's shapes are not those phase 2 checked")
+    work = ROOT / "build" / "chip_smoke" / "train"
+    work.mkdir(parents=True, exist_ok=True)
+    times: list = []
+    during_training: list = []
+    timer = _step_timer(times)
+
+    def on_step(step, metrics):
+        timer(step, metrics)
+        if step == dcfg.steps - 1:
+            during_training.append(ops.launch_counts())
+
+    out = {"arch": cfg.name}
+    torch.cuda.reset_peak_memory_stats()
+    spans = work / "trace.jsonl"
+    spans.unlink(missing_ok=True)
+    trace.configure(str(spans))
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        res = deep.run(dcfg, device="cuda", on_step=on_step)
+    finally:
+        trace.configure(None)
+    run_s = time.perf_counter() - t0
+    launched = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    size_s, candidates, scored = _beam_spans(spans)
+    losses = np.asarray(res.losses)
+    first, last = float(losses[:10].mean()), float(losses[-10:].mean())
+    step_s = statistics.median(times[TRAIN_TIMED_FROM:])
+    tokens = dcfg.batch * dcfg.seq
+    out["run"] = {"seconds": run_s, "steps": len(losses),
+                  "s_per_step": step_s, "tokens_per_s": tokens / step_s,
+                  "peak_gb": peak, "first10_loss": first,
+                  "last10_loss": last, "margin": first - last,
+                  "cindex_deep": res.cindex_deep,
+                  "cindex_sparse": res.cindex_sparse, "nnz": res.nnz,
+                  "support": res.beam.supports[-1].tolist(),
+                  "refit_size_s": size_s, "candidates": candidates,
+                  "params": sum(p.numel() for p in
+                                res.state.model.parameters())}
+    log(f"  deep.run at full width ({out['run']['params'] / 1e6:.1f}M "
+        f"parameters, {cfg.n_layers} layers, bfloat16): {len(losses)} "
+        f"steps of {dcfg.batch} x {dcfg.seq} in {run_s:.1f} s with the "
+        f"refit; {step_s:.4f} s a step (median after step "
+        f"{TRAIN_TIMED_FROM}), {tokens / step_s:.0f} tokens/s, peak "
+        f"{peak:.2f} GB; first-10 mean loss {first:.4f}, last-10 "
+        f"{last:.4f} (margin {first - last:.4f}); refit seconds per size "
+        + ", ".join(f"{v:.3f}" for v in size_s)
+        + f"; support {res.beam.supports[-1].tolist()}; held-out c-index "
+        f"deep head {res.cindex_deep:.4f}, sparse refit "
+        f"{res.cindex_sparse:.4f}")
+    check(bool(np.all(np.isfinite(losses))) and len(losses) == dcfg.steps,
+          "training losses")
+    check(last < first, f"the loss did not fall: first-10 {first:.4f}, "
+          f"last-10 {last:.4f}")
+    check(during_training and not any(during_training[0].values()),
+          f"kernels launched during training: {during_training}")
+    defaults = inspect.signature(beam.beam_search).parameters
+    sweeps = defaults["finetune_sweeps"].default
+    steps = defaults["score_steps"].default
+    blocks = beam.column_blocks(n_held, cfg.d_model, 4)
+    _check_counts("training path (deep.run)", launched, {
+        "cox_coord": sweeps * sum(size * c for size, c in
+                                  enumerate(candidates, 1)),
+        "lipschitz": sum(candidates) + 1,
+        "revcumsum": sum(scored) * (2 * steps + 1) * len(blocks)})
+    check(len(size_s) == dcfg.k and res.nnz <= dcfg.k
+          and res.artifact.is_sparse and res.artifact.k == res.nnz
+          and res.artifact.n_grid == dcfg.grid_size
+          and res.features.shape == (TRAIN_N, DEEP_D), "the refit")
+    check(res.cindex_deep > 0.5 and res.cindex_sparse > 0.5,
+          f"held-out c-indexes {res.cindex_deep:.4f}, "
+          f"{res.cindex_sparse:.4f} not above 0.5")
+
+    # one profiled step, on a copy of the trained state
+    twin_state = copy.deepcopy(res.state)
+    step_fn = trainer.make_train_step(twin_state.model, TrainConfig(
+        learning_rate=dcfg.learning_rate, warmup_steps=dcfg.warmup_steps,
+        total_steps=dcfg.steps), "cox")
+    from repro_torch.data.pipeline import SurvivalTextStream
+    stream = SurvivalTextStream(cfg.vocab_size, dcfg.seq, dcfg.batch,
+                                seed=dcfg.seed)
+    out["profiled_step"] = prof = _profiled_batch(
+        lambda: step_fn(twin_state, stream.batch_for_step(0)), host=True)
+    log(f"  one training step profiled: wall {prof['wall_ms']:.2f} ms, "
+        f"device busy {prof['busy_ms']:.2f} ms -> idle {prof['idle']:.1%}, "
+        f"{prof['kernels']} kernels; top kernels {prof['top_kernels_ms']}; "
+        f"host operators by self time {prof['host_top_ms']}")
+    del twin_state, step_fn
+
+    # the trained artifact served
+    path = res.artifact.save(str(work / "trained_v1"))
+    ops.reset_launch_counts()
+    svc = RiskService(None, return_curves=True)
+    reg = ModelRegistry(svc)
+    check(reg.rollout("trained_v1", path) == 1, "the rollout")
+    check(tuple(reg.prewarm_batches) == DEEP_CURVE_BS,
+          f"the served buckets {reg.prewarm_batches} are not those phase 2 "
+          f"checked")
+    engine = reg.engine()
+    svc.start()
+    reqs = _submit_rows(svc, res.features, len(res.features), SEED + 130)
+    resps = _await_served("trained artifact", svc, reqs)
+    svc.stop()
+    served = ops.launch_counts()
+    _check_counts("trained artifact served", served,
+                  {"survival_curves": engine.calls})
+    launched = {k: launched[k] + served[k] for k in launched}
+    out["launches"] = launched
+    out["serve"] = {"requests": len(reqs), **_check_served(
+        "trained artifact", svc, engine, res.features, reqs, resps,
+        beta=res.beta)}
+    trained_model = res.artifact
+    del res, engine, reg, svc
+    torch.cuda.empty_cache()
+
+    out.update(_train_checks(cfg))
+    out["resume"] = _resume_check(cfg)
+    out["launcher"] = _launcher_check()
+    out["sharded"] = _sharded_checks(x, t, delta, lam2, trained_model)
     return out
 
 
@@ -2655,7 +3250,7 @@ def main() -> int:
     errs["cox_batch"] = batch_errs["float32"]
     errs_bf16["cox_batch"] = batch_errs["bfloat16"]
     errs["lipschitz"] = max(check_lipschitz(), check_lipschitz(
-        ns=(DEEP_N,), ps=tuple(range(1, DEEP_K + 1)) + (DEEP_D,),
+        ns=(DEEP_N, TRAIN_N), ps=tuple(range(1, DEEP_K + 1)) + (DEEP_D,),
         launch_shape=False))
     errs["revcumsum"] = max(errs["revcumsum"], check_selection_scans(
         selection_scan_shapes()))
@@ -2727,6 +3322,16 @@ def main() -> int:
     for name in ("revcumsum", "cox_coord", "lipschitz", "survival_curves"):
         check(deep_out["launches"][name] > 0,
               f"{name} did not launch on the deep-survival path")
+    torch.cuda.empty_cache()
+
+    t13 = time.perf_counter()
+    train_out = train_phase(x, t, delta, lam2)
+    train_out["seconds"] = time.perf_counter() - t13
+    log(f"  phase 13 took {train_out['seconds']:.1f} s")
+    launches["train"] = train_out["launches"]
+    for name in ("revcumsum", "cox_coord", "lipschitz", "survival_curves"):
+        check(train_out["launches"][name] > 0,
+              f"{name} did not launch on the training path")
     log(f"  total {time.perf_counter() - t_start:.1f} s")
 
     kernels = []
@@ -2758,6 +3363,7 @@ def main() -> int:
         "revcumsum_at_block": select["revcumsum_at_block"],
         "baselines": base["steps"]}))
     print(json.dumps({"deep": deep_out}))
+    print(json.dumps({"train": train_out}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -9,16 +9,21 @@ layer where the reference stacks them on a leading (L, ...) axis
 It is built on an explicit device, a card unless ``"cpu"``, with its
 weights unfilled until ``reset_parameters`` draws them from an explicit
 ``torch.Generator`` (``build_model(generator=)`` or ``deep.init_state``)
-or ``load_state_dict`` carries them in; the entry points are forward
-only. Not yet ported (ROADMAP A8b): the ``moe``, ``hybrid``, ``encdec`` and ``vlm``
-families, ``prefill`` and ``decode_step`` with their caches.
+or ``load_state_dict`` carries them in. The objectives take their
+gradients through ``torch.autograd`` (``train/trainer.py``); ``remat``
+recomputes each layer in the backward pass, as the reference's
+``jax.checkpoint`` of its scanned layer body does. Not yet ported (ROADMAP
+A8b): the ``moe``, ``hybrid``, ``encdec`` and ``vlm`` families, in
+training too, and ``prefill`` and ``decode_step`` with their caches.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+import functools
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils import checkpoint as _ckpt
 
 from .. import device as _device
 from ..configs.base import ModelConfig
@@ -28,6 +33,33 @@ Tensor = torch.Tensor
 
 FAMILIES = ("dense", "ssm")
 NOT_PORTED = "not ported yet: ROADMAP A8b"
+
+
+_MATMULS = frozenset(
+    getattr(torch.ops.aten, name).default
+    for name in ("mm", "bmm", "addmm", "baddbmm"))
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """The ``"dots"`` policy: keep matmul outputs, recompute the rest (the
+    reference's ``jax.checkpoint_policies.dots_saveable``)."""
+    return (_ckpt.CheckpointPolicy.MUST_SAVE if op in _MATMULS
+            else _ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _maybe_remat(body: Callable, remat) -> Callable:
+    """remat: False | True/"nothing" (recompute all) | "dots" (save matmul
+    outputs). Without grad there is nothing to save, so nothing changes."""
+    if remat is False or remat is None or not torch.is_grad_enabled():
+        return body
+    if remat == "dots":
+        ctx = functools.partial(_ckpt.create_selective_checkpoint_contexts,
+                                _save_dots)
+        return functools.partial(_ckpt.checkpoint, body, use_reentrant=False,
+                                 context_fn=ctx)
+    if remat is True or remat == "nothing":
+        return functools.partial(_ckpt.checkpoint, body, use_reentrant=False)
+    raise ValueError(f"remat {remat!r}: False, True, 'nothing' or 'dots'")
 
 
 class Model(nn.Module):
@@ -108,9 +140,22 @@ class Model(nn.Module):
     # ------------------------------------------------------------------
     # Hidden states
     # ------------------------------------------------------------------
-    def hidden_states(self, batch: Dict[str, Tensor]) -> Tuple[Tensor, Tensor]:
+    def _dense_layer(self, p_l, window: int, theta: float, x: Tensor,
+                     pos: Tensor):
+        return tf.block_forward(p_l, self.cfg, x, pos, window, theta)
+
+    def _ssm_layer(self, p_l, x: Tensor) -> Tensor:
+        cfg = self.cfg
+        return x + ssm.mamba2_forward(
+            p_l["mamba"], layers.rmsnorm(p_l["ln"], x, cfg.rms_eps),
+            d_state=cfg.ssm_state, head_dim=cfg.ssm_head_dim,
+            expand=cfg.ssm_expand, chunk=cfg.ssm_chunk)
+
+    def hidden_states(self, batch: Dict[str, Tensor],
+                      remat=True) -> Tuple[Tensor, Tensor]:
         """(hidden (B, S, D) after the final norm, aux) for a batch of
-        ``tokens`` (B, S) on the model's device."""
+        ``tokens`` (B, S) on the model's device; ``remat`` as
+        ``_maybe_remat`` reads it, per layer."""
         cfg = self.cfg
         x = self._embed_in(batch)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -118,22 +163,21 @@ class Model(nn.Module):
             b, s = x.shape[:2]
             pos = torch.arange(s, device=x.device)[None, :].expand(b, s)
             for p_l, w_l, th_l in zip(self.layers, self.windows, self.thetas):
-                x, a = tf.block_forward(p_l, cfg, x, pos, int(w_l),
-                                        float(th_l))
+                body = _maybe_remat(functools.partial(
+                    self._dense_layer, p_l, int(w_l), float(th_l)), remat)
+                x, a = body(x, pos)
                 aux = aux + a
         else:
             for p_l in self.layers:
-                x = x + ssm.mamba2_forward(
-                    p_l["mamba"], layers.rmsnorm(p_l["ln"], x, cfg.rms_eps),
-                    d_state=cfg.ssm_state, head_dim=cfg.ssm_head_dim,
-                    expand=cfg.ssm_expand, chunk=cfg.ssm_chunk)
+                x = _maybe_remat(functools.partial(self._ssm_layer, p_l),
+                                 remat)(x)
         return layers.rmsnorm(self.final_norm, x, cfg.rms_eps), aux
 
     # ------------------------------------------------------------------
-    # Objectives (forward only)
+    # Objectives
     # ------------------------------------------------------------------
-    def loss_lm(self, batch: Dict[str, Tensor]):
-        hidden, aux = self.hidden_states(batch)
+    def loss_lm(self, batch: Dict[str, Tensor], remat=True):
+        hidden, aux = self.hidden_states(batch, remat=remat)
         logits = self._logits(hidden).float()
         labels = batch["labels"].long()
         lse = torch.logsumexp(logits, dim=-1)
@@ -148,10 +192,10 @@ class Model(nn.Module):
                              "attaches one")
         return pooled @ self.cox_head["w"][:, 0] + self.cox_head["b"]
 
-    def risk_scores(self, batch: Dict[str, Tensor]):
+    def risk_scores(self, batch: Dict[str, Tensor], remat=True):
         """Deep-survival head: mean-pool every position of the final hidden
         state (no mask) -> risk (B,), and aux."""
-        hidden, aux = self.hidden_states(batch)
+        hidden, aux = self.hidden_states(batch, remat=remat)
         return self.risk_from_pooled(hidden.mean(dim=1).float()), aux
 
     def prefill(self, *args, **kwargs):

@@ -25,18 +25,28 @@ The curve panel of a single-stratum model runs through the
 table on the device and runs through ``survival_curves_stratified``,
 which reads each request's row inside the kernel; stratum indices are
 padded with zeros to the bucket and checked on the host. ``x @ beta``
-stays ``torch.matmul``. Not yet ported: ``shard=`` (data-parallel scoring,
-ROADMAP A7), which raises ``NotImplementedError``.
+stays ``torch.matmul``.
+
+Data-parallel scoring: ``shard=k`` (or ``"auto"``: ``$REPRO_DATA_SHARDS``,
+else one shard per local card) splits every bucketed batch's rows over
+the cards ``cuda:0`` .. ``cuda:k-1`` (clamped to the cards present; the CPU
+is one shard), each holding the model state and running its rows through
+the curve kernel; bucketing becomes per shard (bucket = shards *
+next_pow2(ceil(b / shards))), so each shard sees a power-of-two block.
+``shard=None`` (the default) scores on ``device`` alone.
 """
 from __future__ import annotations
 
-from typing import Optional
+import contextlib
+from typing import Optional, Union
 
 import numpy as np
 import torch
 
 from .. import device as _device
 from ..kernels import ops
+from ..launch import mesh as launch_mesh
+from ..launch import runtime as launch_runtime
 from ..obs import events as obs_events
 from ..obs import metrics as obs_metrics
 from ..obs import trace
@@ -63,29 +73,37 @@ class ScoringEngine:
 
     def __init__(self, model: SurvivalModel, *,
                  use_sparse: Optional[bool] = None, max_sparse_k: int = 64,
-                 shard=None, device="cuda"):
-        if shard is not None:
-            raise NotImplementedError(
-                "sharded scoring (shard=) is not ported yet: ROADMAP A7")
+                 shard: Union[int, str, None] = None, device="cuda"):
         self.device = _device.resolve(device)
         self.model = model
         if use_sparse is None:
             use_sparse = (model.is_sparse
                           and model.k is not None and model.k <= max_sparse_k)
         self.use_sparse = bool(use_sparse and model.is_sparse)
-        self.shard = 1
+        # None -> one device; "auto" -> $REPRO_DATA_SHARDS or one shard per
+        # local card; int -> explicit; both clamped to the cards present
+        if shard is None:
+            self._devices = [self.device]
+        else:
+            n = (launch_runtime.data_shards() or torch.cuda.device_count()
+                 if shard == "auto" else int(shard))
+            self._devices = launch_mesh.make_data_shards(n, self.device)
+        self.shard = len(self._devices)
         self._support = (np.asarray(model.support)
                          if model.support is not None else None)
         beta = model.beta_support if self.use_sparse else model.beta
-        self._beta = self._put(beta)
-        self._h0 = self._put(model.base_cumhaz)   # (s, g)
-        self._grid = self._put(model.time_grid)
+        # (beta, h0 (s, g), grid) on each shard's device
+        self._state = [tuple(self._put(a, dev) for a in
+                             (beta, model.base_cumhaz, model.time_grid))
+                       for dev in self._devices]
+        self._beta, self._h0, self._grid = self._state[0]
         self._cache: dict = {}
         self.compiles = 0
         self.calls = 0
 
-    def _put(self, a) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(a, np.float32), device=self.device)
+    @staticmethod
+    def _put(a, device) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(a, np.float32), device=device)
 
     # -- feature handling --------------------------------------------------
 
@@ -108,7 +126,12 @@ class ScoringEngine:
 
     def _pad(self, x: np.ndarray):
         b = x.shape[0]
-        bucket = _next_pow2(b)
+        if self.shard > 1:
+            # per-shard pow-2 bucketing: every shard sees a power-of-two
+            # block
+            bucket = self.shard * _next_pow2(-(-b // self.shard))
+        else:
+            bucket = _next_pow2(b)
         if bucket != b:
             x = np.pad(x, ((0, bucket - b), (0, 0)))
         return x, b, bucket
@@ -122,15 +145,14 @@ class ScoringEngine:
             obs_events.emit("engine.compile", query=kind, bucket=bucket,
                             feature_dim=self.feature_dim,
                             cache_entries=len(self._cache))
-            fn = self._build(kind)
+            fn = [self._build(kind, h0, grid)
+                  for _, h0, grid in self._state]
             self._cache[key] = fn
         return fn
 
     # -- query bodies --------------------------------------------------------
 
-    def _build(self, kind: str):
-        h0 = self._h0
-        grid = self._grid
+    def _build(self, kind: str, h0: torch.Tensor, grid: torch.Tensor):
         stratified = h0.shape[0] > 1
 
         def eta_of(xb, beta):
@@ -180,14 +202,26 @@ class ScoringEngine:
             _M_CALLS.inc(kind=kind)
             _M_BUCKET.observe(bucket)
             sp_span.set(b=b, bucket=bucket)
-            xb = torch.as_tensor(xp, device=self.device)
-            # a single-stratum model reads no strata: nothing to move
-            st = (torch.as_tensor(sp, device=self.device)
-                  if self.model.n_strata > 1 else None)
-            out = self._fn(kind, bucket)(xb, self._beta, st)
-            if isinstance(out, tuple):
-                return tuple(o.cpu().numpy()[:b] for o in out)
-            return out.cpu().numpy()[:b]
+            fns = self._fn(kind, bucket)
+            rows = bucket // self.shard
+            outs = []
+            # every shard launches before any result is read back
+            for i, (dev, fn, (beta, _, _)) in enumerate(
+                    zip(self._devices, fns, self._state)):
+                with torch.cuda.device(dev) if dev.type == "cuda" \
+                        else contextlib.nullcontext():
+                    xb = torch.as_tensor(xp[i * rows:(i + 1) * rows],
+                                         device=dev)
+                    # a single-stratum model reads no strata: nothing to
+                    # move
+                    st = (torch.as_tensor(sp[i * rows:(i + 1) * rows],
+                                          device=dev)
+                          if self.model.n_strata > 1 else None)
+                    out = fn(xb, beta, st)
+                outs.append(out if isinstance(out, tuple) else (out,))
+            got = tuple(np.concatenate([o[j].cpu().numpy() for o in outs])[:b]
+                        for j in range(len(outs[0])))
+            return got if isinstance(out, tuple) else got[0]
 
     # -- public API --------------------------------------------------------
 
@@ -223,7 +257,7 @@ class ScoringEngine:
         before = self.compiles
         seen = set()
         for b in batch_sizes:
-            bucket = _next_pow2(int(b))
+            _, _, bucket = self._pad(np.zeros((int(b), 1), np.float32))
             if bucket in seen:
                 continue
             seen.add(bucket)

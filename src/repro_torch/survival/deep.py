@@ -1,10 +1,13 @@
 """FastCPH-style deep survival: zoo backbone -> exact CPH head -> paper
 solver refit -> serving artifact.
 
-The PyTorch port's counterpart of the JAX package's ``survival/deep.py``,
-steps 2-4 of its pipeline (step 1, training the backbone under
-``head.cox_loss``, and ``run`` come with the training slice, ROADMAP A8c):
+The PyTorch port's counterpart of the JAX package's ``survival/deep.py``:
 
+  1. **Train** a backbone from the architecture registry (default the
+     reduced mamba2-130m config) under ``survival/head.cox_loss``, the
+     exact Breslow partial likelihood in eta-space, so the gradient into
+     the backbone is the (w*A - delta) eta-gradient the paper analyzes
+     (``train_backbone``).
   2. **Freeze + featurize**: mean-pooled final hidden states become the
      feature matrix of a linear CPH problem (``make_featurizer``,
      ``collect_features``).
@@ -17,41 +20,51 @@ steps 2-4 of its pipeline (step 1, training the backbone under
      through ``RiskService`` exactly like a linear model. Request features
      are pooled embeddings, produced by ``make_featurizer``.
 
-Everything runs on the model's device, a card unless built on ``"cpu"``.
+``run()`` chains all four and reports held-out c-indexes for both the
+deep head (backbone risk scores) and the sparse refit head. Everything
+runs on the model's device, a card unless built on ``"cpu"``.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, List, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..configs import get_config, reduced_config
-from ..configs.base import ModelConfig
+from ..configs.base import ModelConfig, TrainConfig
 from ..core.beam import BeamResult
 from ..data.pipeline import SurvivalTextStream, put_batch
+from ..models import build_model
 from ..models.model import Model
 from ..serving.artifacts import SurvivalModel, fit_survival_model
+from ..train.loop import run_loop
+from ..train.optimizer import init_opt_state
+from ..train.trainer import TrainState, make_train_step
+from . import metrics
 from .head import init_cox_head, pooled_features, sparse_refit
 
 
 @dataclasses.dataclass
 class DeepSurvivalConfig:
-    """Knobs for the featurize -> refit -> export pipeline, each at the
-    reference's default (its training knobs come with the training slice,
-    ROADMAP A8c). The held-out batches start after ``steps`` training
-    steps of ``batch`` sequences."""
+    """Knobs for the train -> refit -> export pipeline, each at the
+    reference's default. The held-out batches start after ``steps``
+    training steps of ``batch`` sequences."""
 
     arch: str = "mamba2-130m"
     full: bool = False           # ~100M config instead of the CPU-sized one
     steps: int = 150
     batch: int = 32
     seq: int = 48
+    learning_rate: float = 2e-3
+    warmup_steps: int = 20
     seed: int = 0
     k: int = 8                   # sparse-head support size (<= d_model)
     beam_width: int = 4
+    refit_batches: int = 4       # held-out batches for refit + eval
     grid_size: int = 64          # artifact time-grid resolution
+    log_every: int = 25
 
 
 @dataclasses.dataclass
@@ -59,7 +72,7 @@ class DeepSurvivalResult:
     """Everything the pipeline produced, ready for serving or analysis."""
 
     cfg: ModelConfig
-    state: Model                 # the backbone with its Cox head
+    state: TrainState            # the trained backbone, Cox head, moments
     losses: List[float]
     features: np.ndarray         # (n_eval, d_model) frozen pooled features
     times: np.ndarray
@@ -93,14 +106,38 @@ def _generator(device: torch.device, seed: int) -> torch.Generator:
     return torch.Generator(device).manual_seed(seed)
 
 
-def init_state(model: Model, rng_seed: int = 0) -> Model:
+def init_state(model: Model, rng_seed: int = 0) -> TrainState:
     """Backbone params drawn from a generator seeded ``rng_seed`` and a CPH
-    head from ``rng_seed + 1``, both on the model's device; returns the
-    model. No optimizer state yet (the training slice adds it)."""
+    head from ``rng_seed + 1``, both on the model's device, wrapped in a
+    fresh optimizer state."""
     model.reset_parameters(_generator(model.device, rng_seed))
     model.cox_head = init_cox_head(_generator(model.device, rng_seed + 1),
                                    model.cfg.d_model, model.device)
-    return model
+    return TrainState(model=model, opt=init_opt_state(model))
+
+
+def train_backbone(model: Model, dcfg: DeepSurvivalConfig,
+                   stream: Optional[SurvivalTextStream] = None,
+                   state: Optional[TrainState] = None,
+                   on_step: Optional[Callable[[int, dict], None]] = None,
+                   ) -> Tuple[TrainState, List[float], SurvivalTextStream]:
+    """Step 1: fit the backbone under the exact CPH objective, on the
+    model's device. ``on_step(step, metrics)`` fires after every step
+    (``run_loop``'s)."""
+    cfg = model.cfg
+    if stream is None:
+        stream = SurvivalTextStream(cfg.vocab_size, dcfg.seq, dcfg.batch,
+                                    seed=dcfg.seed)
+    if state is None:
+        state = init_state(model, dcfg.seed)
+    tcfg = TrainConfig(learning_rate=dcfg.learning_rate,
+                       warmup_steps=dcfg.warmup_steps,
+                       total_steps=dcfg.steps)
+    step_fn = make_train_step(model, tcfg, objective="cox")
+    state, losses = run_loop(step_fn, state, stream, dcfg.steps,
+                             log_every=dcfg.log_every,
+                             log_prefix="[deep]", on_step=on_step)
+    return state, losses, stream
 
 
 def make_featurizer(model: Model) -> Callable:
@@ -155,3 +192,34 @@ def refit_and_export(features: np.ndarray, t: np.ndarray, e: np.ndarray,
     artifact = fit_survival_model(features, t, e, beta, grid_size=grid_size,
                                   device=device)
     return beam, beta, artifact
+
+
+def run(dcfg: Optional[DeepSurvivalConfig] = None, *, device="cuda",
+        on_step: Optional[Callable[[int, dict], None]] = None,
+        **overrides: Any) -> DeepSurvivalResult:
+    """The whole pipeline on ``device`` (a card unless ``"cpu"``);
+    ``overrides`` patch ``DeepSurvivalConfig``, ``on_step`` goes to
+    ``train_backbone``."""
+    if dcfg is None:
+        dcfg = DeepSurvivalConfig(**overrides)
+    elif overrides:
+        dcfg = dataclasses.replace(dcfg, **overrides)
+    cfg = model_config(dcfg)
+    model = build_model(cfg, device=device)
+    state, losses, stream = train_backbone(model, dcfg, on_step=on_step)
+    held = collect_features(model, stream, dcfg.steps, dcfg.refit_batches)
+    k = min(dcfg.k, max(cfg.d_model // 4, 1))
+    beam, beta, artifact = refit_and_export(
+        held["features"], held["time"], held["event"],
+        k=k, beam_width=dcfg.beam_width, grid_size=dcfg.grid_size,
+        device=model.device)
+    ci_deep = metrics.cindex(held["time"], held["event"],
+                             held["risk_deep"])
+    ci_sparse = metrics.cindex(held["time"], held["event"],
+                               held["features"] @ beta)
+    return DeepSurvivalResult(
+        cfg=cfg, state=state, losses=losses,
+        features=held["features"], times=held["time"],
+        events=held["event"], risks_deep=held["risk_deep"],
+        beam=beam, beta=beta, artifact=artifact,
+        cindex_deep=float(ci_deep), cindex_sparse=float(ci_sparse))

@@ -6,8 +6,9 @@ The batch is the risk-set universe: risk scores eta_i come from the pooled
 final hidden state, the batch is sorted by observed time inside the step,
 and the loss is the exact Breslow negative log partial likelihood from
 ``core/cox.py``, so the gradient into the backbone is the eta-space
-gradient (w*A - delta) the paper analyzes. Forward only so far: the
-backward pass of ``cox_loss`` comes with the training slice (ROADMAP A8c).
+gradient (w*A - delta) the paper analyzes. The loss is built from plain
+torch ops, so ``torch.autograd`` takes that gradient through it
+(``trainer.make_train_step(objective="cox")``).
 
 ``sparse_refit`` applies the paper's beam-search CD on frozen pooled
 features to produce an interpretable sparse linear head.
@@ -51,8 +52,10 @@ def cox_partial_likelihood(eta: Tensor, time: Tensor, event: Tensor) -> Tensor:
 
 
 def cox_loss(model: Model, batch):
-    """Survival objective of a batch (forward only): the partial likelihood
-    of the model's risk scores, plus 0.01 x aux."""
+    """Survival objective of a batch for
+    ``trainer.make_train_step(objective="cox")``: the partial likelihood of
+    the model's risk scores (each layer rematerialized in the backward
+    pass, as the reference's default), plus 0.01 x aux."""
     eta, aux = model.risk_scores(batch)
     loss = cox_partial_likelihood(eta.float(), batch["time"], batch["event"])
     return loss + 0.01 * aux, {"cox_nll": loss, "aux": aux}
@@ -60,7 +63,7 @@ def cox_loss(model: Model, batch):
 
 def pooled_features(model: Model, batch) -> Tensor:
     """The final hidden state mean-pooled over every position, float32."""
-    hidden, _ = model.hidden_states(batch)
+    hidden, _ = model.hidden_states(batch, remat=False)
     return hidden.mean(dim=1).float()
 
 

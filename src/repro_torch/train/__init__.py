@@ -1,3 +1,3 @@
-"""Training support. Only ``fault_tolerance.DataSkipper`` is ported yet;
-the trainer, optimizer and checkpointing wait for the training slice
-(ROADMAP A8c)."""
+"""Training: the AdamW optimizer, the train step, the loop, checkpoints,
+gradient compression and fault tolerance (the PyTorch port's counterpart
+of the JAX package's ``train/``)."""

@@ -1,0 +1,108 @@
+"""Training step factory: loss -> grads (with optional microbatch
+accumulation) -> clip -> AdamW, as one function of ``(TrainState, batch)``.
+
+The PyTorch port's counterpart of the JAX package's ``train/trainer.py``.
+The state is the ``Model`` (its parameters, the Cox head among them once
+``deep.init_state`` has attached it) and its ``OptState``; a step takes its
+grads through ``torch.autograd``, writes the new parameters into the model
+in place and returns the same state. A parameter the objective does not
+reach gets a zero gradient, as ``jax.grad`` gives it.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict
+
+import torch
+
+from ..configs.base import TrainConfig
+from ..data.pipeline import put_batch
+from ..models.model import Model
+from . import optimizer as opt_lib
+
+Tensor = torch.Tensor
+
+
+@dataclasses.dataclass
+class TrainState:
+    model: Model
+    opt: opt_lib.OptState
+
+
+def init_train_state(model: Model, gen: torch.Generator) -> TrainState:
+    """Draw the model's weights from ``gen`` and wrap them with zero
+    moments."""
+    model.reset_parameters(gen)
+    return TrainState(model=model, opt=opt_lib.init_opt_state(model))
+
+
+def make_loss_fn(model: Model, objective: str = "lm",
+                 remat=True) -> Callable:
+    """``loss_fn(batch, m=model) -> (loss, aux metrics)`` of ``objective``
+    on ``m``'s current parameters: ``"lm"`` (``Model.loss_lm`` with
+    ``remat``) or ``"cox"`` (``head.cox_loss``, which rematerializes as the
+    reference's does)."""
+    if objective == "lm":
+        def loss_fn(batch, m=model):
+            return m.loss_lm(batch, remat=remat)
+    elif objective == "cox":
+        from ..survival import head as head_lib
+
+        def loss_fn(batch, m=model):
+            return head_lib.cox_loss(m, batch)
+    else:
+        raise ValueError(objective)
+    return loss_fn
+
+
+def _grads(loss: Tensor, params: Dict[str, Tensor]) -> Dict[str, Tensor]:
+    got = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
+    return {k: torch.zeros_like(p) if g is None else g
+            for (k, p), g in zip(params.items(), got)}
+
+
+def make_train_step(model: Model, tcfg: TrainConfig,
+                    objective: str = "lm") -> Callable:
+    """``train_step(state, batch) -> (state, metrics)`` for ``model``. The
+    batch is a host (numpy) or device batch; it moves to the model's
+    device. With ``tcfg.microbatch > 1`` dim 0 splits into that many
+    chunks, whose grads add in float32 and, with the loss, divide by the
+    count; the metrics are then the loss and the optimizer's only. The
+    step runs on ``state.model``, ``model`` or one restored in its place."""
+    loss_fn = make_loss_fn(model, objective, remat=tcfg.remat)
+
+    def train_step(state: TrainState, batch) -> tuple:
+        m = state.model
+        b = put_batch(batch, m.device)
+        params = dict(m.named_parameters())
+        if tcfg.microbatch > 1:
+            k = tcfg.microbatch
+            grads = {n: torch.zeros(p.shape, dtype=torch.float32,
+                                    device=p.device)
+                     for n, p in params.items()}
+            loss = torch.zeros((), dtype=torch.float32, device=m.device)
+            for i in range(k):
+                mb = {n: v.reshape(k, v.shape[0] // k, *v.shape[1:])[i]
+                      for n, v in b.items()}
+                loss_i, _ = loss_fn(mb, m)
+                for n, g in _grads(loss_i, params).items():
+                    grads[n] = grads[n] + g
+                loss = loss + loss_i.detach()
+            grads = {n: g / k for n, g in grads.items()}
+            loss = loss / k
+            metrics: Dict[str, Tensor] = {}
+        else:
+            loss, metrics = loss_fn(b, m)
+            grads = _grads(loss, params)
+            loss = loss.detach()
+            metrics = {n: v.detach() for n, v in metrics.items()}
+        new_p, state.opt, opt_metrics = opt_lib.adamw_update(
+            grads, state.opt, {n: p.detach() for n, p in params.items()},
+            tcfg)
+        del grads
+        with torch.no_grad():
+            for n, p in params.items():
+                p.copy_(new_p[n])
+        return state, {"loss": loss, **metrics, **opt_metrics}
+
+    return train_step

@@ -43,6 +43,17 @@ SERVE_RTOL = 1e-4
 SEQ, BATCH, START, N_BATCHES, K = 20, 16, 16, 4, 4
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread while this module runs: the suite runs several
+    workers on the machine's cores, and these small models' ops gain
+    nothing from more threads than that."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def assert_close(got, want, rtol):
     got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
     assert got.shape == want.shape, (got.shape, want.shape)
@@ -59,7 +70,7 @@ def models():
     cfg = deep.model_config(deep.DeepSurvivalConfig(seq=SEQ, batch=BATCH))
     jm = jbuild(jcfg)
     jstate = jdeep.init_state(jm, 0)
-    m = deep.init_state(Model(cfg, device="cpu"), 0)
+    m = deep.init_state(Model(cfg, device="cpu"), 0).model
     m.load_state_dict(convert.model_params_from_jax(
         cfg, jax.tree.map(np.asarray, jstate.params)))
     return jm, jstate, m, cfg
@@ -120,9 +131,9 @@ def test_config_override_and_full_path():
 
 def test_init_state_is_seeded_and_attaches_the_head():
     cfg = deep.model_config(deep.DeepSurvivalConfig())
-    a = deep.init_state(Model(cfg, device="cpu"), 5)
-    b = deep.init_state(Model(cfg, device="cpu"), 5)
-    c = deep.init_state(Model(cfg, device="cpu"), 6)
+    a = deep.init_state(Model(cfg, device="cpu"), 5).model
+    b = deep.init_state(Model(cfg, device="cpu"), 5).model
+    c = deep.init_state(Model(cfg, device="cpu"), 6).model
     assert a.cox_head["w"].shape == (cfg.d_model, 1)
     assert a.cox_head["b"].shape == () and a.cox_head["b"].item() == 0.0
     assert a.cox_head["w"].std().item() == pytest.approx(0.01, rel=0.3)
@@ -315,3 +326,126 @@ def test_featurizer_matches_collected_features(models, held):
                                rtol=1e-5)
     np.testing.assert_allclose(risk.numpy(), got["risk_deep"][:BATCH],
                                rtol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# training and deep.run (tests/test_deep.py's settings and checks)
+# ---------------------------------------------------------------------------
+
+RUN = dict(steps=16, batch=16, seq=20, k=4, refit_batches=2, log_every=0,
+           warmup_steps=4)
+TRAJ_RTOL = 2e-3         # 16 steps' losses: Adam moves a near-zero
+                         # gradient by about +-lr whatever its last bits
+                         # (observed 5e-5)
+TRAINED_RTOL = 3e-2      # held-out features after those 16 steps, max
+                         # |port - ref| / max |ref| (observed 1.1e-2)
+
+
+@pytest.fixture(scope="module")
+def run_result():
+    return deep.run(device="cpu", **RUN)
+
+
+def test_deep_config_has_every_reference_knob():
+    got = dataclasses.asdict(deep.DeepSurvivalConfig())
+    want = dataclasses.asdict(jdeep.DeepSurvivalConfig())
+    assert got == want
+
+
+def test_run_training_losses_finite_and_improving(run_result):
+    assert len(run_result.losses) == 16
+    assert np.isfinite(run_result.losses).all()
+    assert np.mean(run_result.losses[-4:]) \
+        < np.mean(run_result.losses[:4]) + 0.05
+
+
+def test_run_state_is_the_trained_train_state(run_result):
+    st = run_result.state
+    assert st.opt.step == 16
+    assert st.model.cox_head is not None
+    assert sorted(st.opt.m) == sorted(dict(st.model.named_parameters()))
+    assert all(v.dtype == torch.float32 for v in st.opt.v.values())
+
+
+def test_run_sparse_head_is_k_sparse(run_result):
+    assert run_result.nnz <= 4
+    assert run_result.beta.shape == (run_result.cfg.d_model,)
+    assert len(run_result.beam.supports[-1]) == run_result.nnz
+
+
+def test_run_cindexes_beat_random(run_result):
+    assert run_result.cindex_deep > 0.5
+    assert run_result.cindex_sparse > 0.5
+
+
+def test_run_artifact_shape_and_sparsity(run_result):
+    art = run_result.artifact
+    assert art.p == run_result.cfg.d_model
+    assert art.is_sparse and art.k == run_result.nnz
+    assert art.base_cumhaz.shape == (1, art.n_grid)
+    assert (art.base_cumhaz >= 0).all()
+    assert (np.diff(art.base_cumhaz, axis=1) >= -1e-6).all()
+
+
+def test_run_artifact_roundtrip_and_serving(run_result, tmp_path):
+    path = str(tmp_path / "deep_artifact")
+    run_result.artifact.save(path)
+    loaded = SurvivalModel.load(path)
+    np.testing.assert_array_equal(loaded.beta, run_result.artifact.beta)
+    svc = RiskService(None, max_batch=8)
+    reg = ModelRegistry(svc, prewarm_batches=(1, 8),
+                        engine_factory=lambda mdl: ScoringEngine(
+                            mdl, device="cpu"))
+    reg.rollout("deep_v1", path)
+    svc.start()
+    try:
+        rids = [svc.submit(f) for f in run_result.features[:8]]
+        served = np.array([svc.wait(r, timeout=60.0).risk for r in rids])
+    finally:
+        svc.stop()
+    expect = np.exp(np.clip(run_result.features[:8] @ run_result.beta,
+                            -30., 30.))
+    np.testing.assert_allclose(served, expect, rtol=SERVE_RTOL)
+    assert reg.get("deep_v1").state == "live"
+
+
+def test_run_featurizer_matches_collected_features(run_result):
+    featurize = deep.make_featurizer(run_result.state.model)
+    b = SurvivalTextStream(run_result.cfg.vocab_size, 20, 16,
+                           seed=0).batch_for_step(16)
+    risk, feats = featurize(b)
+    np.testing.assert_allclose(feats.numpy(), run_result.features[:16],
+                               rtol=1e-5)
+    np.testing.assert_allclose(risk.numpy(), run_result.risks_deep[:16],
+                               rtol=1e-5)
+
+
+def test_run_defaults_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        deep.run(**RUN)
+
+
+def test_train_backbone_matches_reference():
+    """From the reference's initial state (carried across by
+    ``train_state_from_jax``): the 16 steps' losses step by step, and the
+    held-out features and c-indexes of the reference's ``deep.run``."""
+    want = jdeep.run(**RUN)
+    dcfg = deep.DeepSurvivalConfig(**RUN)
+    cfg = deep.model_config(dcfg)
+    jstate = jdeep.init_state(jbuild(jdeep.model_config(
+        jdeep.DeepSurvivalConfig(**RUN))), dcfg.seed)
+    st = convert.train_state_from_jax(
+        cfg, jax.tree.map(np.asarray, jstate.params),
+        jax.tree.map(np.asarray, jstate.opt), device="cpu")
+    seen = []
+    st, losses, stream = deep.train_backbone(
+        st.model, dcfg, state=st, on_step=lambda s, m: seen.append(s))
+    assert seen == list(range(16)) and st.opt.step == 16
+    np.testing.assert_allclose(losses, want.losses, rtol=TRAJ_RTOL)
+    held = deep.collect_features(st.model, stream, dcfg.steps,
+                                 dcfg.refit_batches)
+    np.testing.assert_array_equal(held["time"], want.times)
+    assert_close(held["features"], want.features, TRAINED_RTOL)
+    assert want.cindex_deep > 0.5 and want.cindex_sparse > 0.5

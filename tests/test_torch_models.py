@@ -307,7 +307,7 @@ def test_risk_scores_match(pair):
     jm, params, m, cfg = pair
     jparams = dict(params, cox_head=j_init_cox_head(jax.random.PRNGKey(5),
                                                     cfg.d_model))
-    m2 = deep.init_state(Model(cfg, device="cpu"))
+    m2 = deep.init_state(Model(cfg, device="cpu")).model
     m2.load_state_dict(convert.model_params_from_jax(
         cfg, jax.tree.map(np.asarray, jparams)))
     b = _tokens(cfg, seed=3)
@@ -357,7 +357,7 @@ def test_mamba2_full_width_matches(dtype, rtol):
     params = jm.init_params(jax.random.PRNGKey(7))
     params = dict(params, cox_head=j_init_cox_head(jax.random.PRNGKey(8),
                                                    cfg.d_model))
-    m = deep.init_state(Model(cfg, device="cpu"))
+    m = deep.init_state(Model(cfg, device="cpu")).model
     m.load_state_dict(convert.model_params_from_jax(
         cfg, jax.tree.map(np.asarray, params)))
     b = _tokens(cfg, b=2, s=dcfg.seq, seed=9)

@@ -319,11 +319,14 @@ def test_engine_counts_curve_dispatches():
 
 
 def test_engine_unported_options_raise():
-    """shard= (ROADMAP A7) still raises; stratified models now score."""
+    """shard= (ROADMAP A7) is ported: on the CPU it clamps to one shard
+    and scores as the unsharded engine does; stratified models score."""
     x, t, delta, beta = _problem(n=120)
     model = _fit(x, t, delta, beta)
-    with pytest.raises(NotImplementedError, match="A7"):
-        ScoringEngine(model, shard=2, device="cpu")
+    sharded = ScoringEngine(model, shard=2, device="cpu")
+    assert sharded.shard == 1
+    np.testing.assert_array_equal(sharded.risk_scores(x[:5]),
+                                  _engine(model).risk_scores(x[:5]))
     strata = np.random.default_rng(0).integers(0, 2, size=len(t))
     strat = _fit(x, t, delta, beta, strata=strata)
     q, sq = x[:3], np.array([0, 1, 0])
