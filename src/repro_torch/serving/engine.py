@@ -126,12 +126,8 @@ class ScoringEngine:
 
     def _pad(self, x: np.ndarray):
         b = x.shape[0]
-        if self.shard > 1:
-            # per-shard pow-2 bucketing: every shard sees a power-of-two
-            # block
-            bucket = self.shard * _next_pow2(-(-b // self.shard))
-        else:
-            bucket = _next_pow2(b)
+        # per-shard pow-2 bucketing: every shard sees a power-of-two block
+        bucket = self.shard * _next_pow2(-(-b // self.shard))
         if bucket != b:
             x = np.pad(x, ((0, bucket - b), (0, 0)))
         return x, b, bucket

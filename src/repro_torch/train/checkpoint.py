@@ -60,14 +60,16 @@ def _flatten(tree, prefix: str = "") -> Dict[str, Any]:
 
 
 def _to_host(leaf) -> tuple:
-    """(numpy array, manifest dtype) of a leaf."""
+    """(numpy array, manifest dtype) of a leaf: a copy, never a view, so a
+    step that then writes the parameters in place does not reach it (on the
+    CPU, ``.cpu()`` and ``.numpy()`` share the leaf's storage)."""
     if isinstance(leaf, torch.Tensor):
-        t = leaf.detach().cpu()
+        t = leaf.detach().to("cpu", copy=True)
         if t.dtype == torch.bfloat16:
             return t.view(torch.int16).numpy().view(np.uint16), "bfloat16"
         arr = t.numpy()
     else:
-        arr = np.asarray(leaf)
+        arr = np.array(leaf)
         if isinstance(leaf, (int, np.integer)):
             arr = arr.astype(np.int32)
     return arr, str(arr.dtype)
@@ -191,6 +193,9 @@ def restore(ckpt_dir: str, target: Any, step: Optional[int] = None,
     if _is_train_state(target):
         model = target.model
         dev = torch.device(device) if device is not None else model.device
+        if dev.type == "meta":
+            raise ValueError("the target's model is on the meta device: "
+                             "restore it with an explicit device=")
         if model.device.type == "meta":
             model.to_empty(device=dev)
         elif model.device != dev:

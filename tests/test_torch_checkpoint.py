@@ -13,6 +13,7 @@ import json
 import os
 import subprocess
 import sys
+import threading
 
 import numpy as np
 import pytest
@@ -110,10 +111,20 @@ def test_async_checkpointer(tmp_path):
     assert len([x for x in steps if x.startswith("step_")]) == 2  # keep=2
 
 
-def test_async_save_copies_before_returning(tmp_path):
+def test_async_save_copies_before_returning(tmp_path, monkeypatch):
     """The leaves go to the host on the calling thread: a step taken right
-    after ``save`` returns does not reach the checkpoint."""
+    after ``save`` returns does not reach the checkpoint. The writer is held
+    until that step has written the parameters in place, so the check does
+    not depend on which thread runs first."""
     cfg, state, step_fn = _tiny()
+    stepped = threading.Event()
+    write = ckpt._write
+
+    def held_write(*args):
+        assert stepped.wait(60)
+        return write(*args)
+
+    monkeypatch.setattr(ckpt, "_write", held_write)
     d = str(tmp_path / "ckpt")
     ac = ckpt.AsyncCheckpointer(d)
     before = {k: p.detach().clone()
@@ -121,7 +132,10 @@ def test_async_save_copies_before_returning(tmp_path):
     ac.save(1, state)
     state, _ = step_fn(state, TokenTaskStream(cfg.vocab_size, 16, 4)
                        .batch_for_step(0))
+    stepped.set()
     ac.wait()
+    after = dict(state.model.named_parameters())
+    assert any(not torch.equal(after[k], before[k]) for k in before)
     got = ckpt.restore(d, {"params": before}, step=1)
     assert all(torch.equal(got["params"][k], before[k]) for k in before)
 
@@ -219,6 +233,22 @@ def test_elastic_restore_onto_another_device(tmp_path):
     assert got["w"].device.type == "cpu"
     np.testing.assert_array_equal(got["w"].numpy(),
                                   np.arange(64).reshape(8, 8))
+
+
+def test_restore_into_a_meta_model_needs_a_device(tmp_path):
+    """A model on the meta device holds no storage: restoring into it
+    without ``device=`` raises rather than returning a state of no data."""
+    cfg, state, _ = _tiny()
+    d = str(tmp_path / "ck")
+    ckpt.save(d, 2, state)
+    target = trainer.TrainState(model=Model(cfg, device="meta"),
+                                opt=optimizer.init_opt_state(
+                                    Model(cfg, device="meta")))
+    with pytest.raises(ValueError, match="meta"):
+        ckpt.restore(d, target)
+    with pytest.raises(ValueError, match="meta"):
+        ft.resume_or_init(d, lambda: pytest.fail("init_fn called"),
+                          target_shape=target)
 
 
 def test_resume_or_init_without_a_checkpoint(tmp_path):
