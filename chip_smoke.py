@@ -485,22 +485,45 @@ def _coord_scales(eta, x, d, rs, order):
     return [float(sg), float(sh), float(sc) if order == 3 else 1.0]
 
 
+# profiler windows device_ops reads before it gives up on the profiler
+OPS_WINDOWS = 3
+
+
 def device_ops(fn) -> list:
     """Names of the device operations (kernels, copies, memsets) one call
-    of ``fn`` issues, by torch.profiler, after a warm-up call."""
+    of ``fn`` issues, by torch.profiler, after a warm-up call.
+
+    Each window brackets the call between two fills of a marker tensor,
+    and the call's operations are those between the two fills. A window
+    that lost either marker is profiled again, up to OPS_WINDOWS windows:
+    short windows of a few ctypes launches have come back empty, or
+    missing their first kernel."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    marker = torch.zeros(1, device="cuda")
     # the warm-up call in a window of its own: the first profiler window of
     # a process has come back missing its first kernel
     with profile(activities=[ProfilerActivity.CUDA]):
         fn()
         torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    for _ in range(OPS_WINDOWS):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            marker.fill_(1.0)
+            fn()
+            marker.fill_(2.0)
+            torch.cuda.synchronize()
+        events = sorted((e for e in prof.events()
+                         if e.device_type == DeviceType.CUDA),
+                        key=lambda e: e.time_range.start)
+        names = [e.name for e in events]
+        if (len(names) >= 2 and "FillFunctor" in names[0]
+                and "FillFunctor" in names[-1]):
+            return names[1:-1]
+        log(f"  torch.profiler lost a marker of the window ({names}); "
+            f"profiling again")
+    check(False, f"torch.profiler lost a marker in {OPS_WINDOWS} windows")
 
 
 def check_launch_shape(name: str, fn, want: int, prefix: str) -> None:
@@ -1706,15 +1729,21 @@ def _profiled_batch(fn, host: bool = False) -> dict:
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    events = prof.key_averages()
-    kernels = [(e.key, e.device_time_total / 1e3, e.count) for e in events
-               if e.device_type == DeviceType.CUDA]
-    busy = sum(ms for _, ms, _ in kernels)
+    # a window with no device activity at all is profiled once more, as in
+    # device_ms; a second empty one fails
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        events = prof.key_averages()
+        kernels = [(e.key, e.device_time_total / 1e3, e.count)
+                   for e in events if e.device_type == DeviceType.CUDA]
+        busy = sum(ms for _, ms, _ in kernels)
+        if busy > 0:
+            break
+        log("  torch.profiler recorded no device activity; profiling again")
     check(busy > 0, "torch.profiler recorded no device activity")
     top = sorted(kernels, key=lambda kv: -kv[1])[:5]
     out = {"wall_ms": wall, "busy_ms": busy, "idle": 1 - busy / wall,

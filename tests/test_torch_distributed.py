@@ -85,8 +85,15 @@ dist.all_reduce(exact, group=group)
 res["psum"] = exact
 np.savez(os.path.join(out, f"rank{{rank}}.npz"),
          **{{k: v.numpy() for k, v in res.items()}})
-dist.destroy_process_group()
-print("RANK_OK")
+print("RANK_SAVED", flush=True)
+# Every rank has finished its collectives once the barrier returns. The
+# rank then leaves without tearing gloo down: a 4-rank world's teardown
+# (destroy_process_group or the interpreter's exit) has aborted a rank
+# with "terminate called without an active exception" after its results
+# were written.
+dist.barrier(group=group)
+print("RANK_OK", flush=True)
+os._exit(0)
 """
 
 JAX_PSUM = r"""
@@ -148,8 +155,9 @@ def _run_world(w, tmp_path_factory):
         for p in procs:
             if p.poll() is None:
                 p.kill()
-    for rc, so, se in logs:
-        assert rc == 0 and "RANK_OK" in so, so + "\n---\n" + se
+    for r, (rc, so, se) in enumerate(logs):
+        assert rc == 0 and "RANK_OK" in so, (f"rank {r} of {w}: rc {rc}\n"
+                                            + so + "\n---\n" + se)
     ranks = [dict(np.load(out / f"rank{r}.npz")) for r in range(w)]
     _RUNS[w] = (w, ranks, out)
     return _RUNS[w]
