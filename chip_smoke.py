@@ -173,6 +173,27 @@ Phases, each printed as it runs; any failed check raises:
      against ``fit_cd`` at n = 262,144, p = 1,000, ``sharded_grad_hess_all``,
      ``compressed_psum`` and ``ScoringEngine(shard="auto")``. Its launches
      are the kernels line's "train".
+  14. batched decode, after phase 13: ``launch.serve.serve_batch`` (prefill,
+     then a greedy decode loop) on 4 requests drawn from the seed, bfloat16
+     weights drawn on the card from SEED, at the published widths of
+     DECODE_CASES: mixtral-8x7b (8 of 32 layers) at prompts of 4,160 (past
+     its window of 4,096) and 64 (under it), 32 new tokens; zamba2-2.7b
+     (54 layers) 512 + 32; gemma3-12b (12 of 48 layers) 1,100 + 16 (past
+     its local window of 1,024); seamless-m4t-large-v2 (24 + 24) 256 source
+     frames and tokens + 32; qwen2-vl-7b (28) 512 + 32. Each model is freed
+     before the next. Per architecture: prefill seconds, decode seconds a
+     step and tokens a second, peak memory, and one decode step under
+     torch.profiler (idle share, kernels). Checks: every cache leaf of
+     ``Model.init_cache``'s shape (the sliding window's 4,096 and 97
+     slots) and its length the prompt plus the steps; each call's logits
+     against the same model's full forward over the prompt and the tokens
+     emitted, in bfloat16 (DECODE_BF16_RTOL) and in its float32 twin
+     teacher-forced to those tokens (DECODE_F32_RTOL), for mixtral's dense
+     variant (n_experts=0) at both prompts and every other architecture;
+     mixtral's MoE at 2 layers against its float32 twin teacher-forced to
+     the tokens and the expert routes (MOE_TWIN_RTOL); qwen2-vl's prefill
+     from embeddings with 3-D M-RoPE positions. No kernel launches on this
+     path: its counts, zeroed before it, are read as 0 after it.
 
 Phase 2 also holds revcumsum at the selection path's (262,144, 1,000) and
 (262,144, block) panels and lipschitz at (262,144, 15) against their plain
@@ -181,11 +202,12 @@ revcumsum on the (32,768, 768) and (128, 768) refit panels and at (128,
 256), cox_coord at n = 32,768 and 128, lipschitz at (32,768 or 128,
 1..8) and (32,768 or 128, 768), survival_curves at g = 64 for every
 served bucket b = 1..64. Kernel launch counts are zeroed just before each
-path (phases 3-5, 5b, 11's two services, 7, 9's two calls, 10, 12 and 13)
-and read just after it. The line before the last but five is one JSON
-object with phase 11's numbers, then one with the selection path's and
-phase 10's launch counts, then one with phase 12's numbers, then one with
-phase 13's, then one with every kernel's numbers (its
+path (phases 3-5, 5b, 11's two services, 7, 9's two calls, 10, 12, 13
+and 14) and read just after it. The line before the last but six is one
+JSON object with phase 11's numbers, then one with the selection path's
+and phase 10's launch counts, then one with phase 12's numbers, then one
+with phase 13's, then one with phase 14's (``{"decode": ...}``), then one
+with every kernel's numbers (its
 ``launches_by_path`` gives every path's count), then the card's name and
 power limit; the last is ``{"ok": true, "device": {...}}``. Without CUDA,
 or without the repository beside it, the script exits nonzero and prints
@@ -340,6 +362,39 @@ SHARDED_RTOL = 1e-2      # objective, fit_cd_sharded against fit_cd
 SHARDED_GH_RTOL = 1e-3   # sharded_grad_hess_all against grad_hess_all,
                          # max |diff| / max |ref|: float32 sums over
                          # 262,144 rows in two orders
+
+# phase 14: batched decode through launch.serve.serve_batch, bfloat16,
+# weights drawn from SEED: (arch, layers kept (None: uncut), prompt, new
+# tokens), DECODE_REQUESTS requests of one prompt length each; mixtral also
+# at DECODE_C10_PROMPT (under its window of 4,096: C10), and its dense
+# variant (n_experts=0) beside it
+DECODE_REQUESTS = 4
+DECODE_CASES = (("mixtral-8x7b", 8, 4_160, 32),
+                ("zamba2-2.7b", None, 512, 32),
+                ("gemma3-12b", 12, 1_100, 16),
+                ("seamless-m4t-large-v2", None, 256, 32),
+                ("qwen2-vl-7b", None, 512, 32))
+DECODE_C10_PROMPT = 64
+DECODE_BF16_RTOL = 1e-1  # ||decode - full forward|| / ||full forward|| of
+                         # each step's logits, both bfloat16: the same
+                         # model rounds in other places (one token's GEMMs,
+                         # attention and SSM recurrence against the whole
+                         # sequence's), and a 1-ulp flip (2^-8) compounds
+                         # with depth: mamba2-130m at full width on the CPU
+                         # reads 1.6e-3 at 2 layers, 1.2e-2 at 6, 3.0e-2 at
+                         # 24; these models have 16-63 sublayers
+DECODE_F32_RTOL = 1e-3   # the same in the model's float32 twin (TF32 off),
+                         # teacher-forced to the bfloat16 run's tokens: a
+                         # cache fault (C10: 0.28-0.52 of the logits; C11:
+                         # 0.19) shows here above the rounding (3.2e-6 at 6
+                         # mamba2 layers on the CPU)
+MOE_TWIN_LAYERS = 2
+MOE_TWIN_RTOL = 5e-2  # ||bfloat16 - float32|| / ||float32|| of each step's
+                      # logits of mixtral's 2-layer twin, teacher-forced to
+                      # the bfloat16 run's tokens and expert routes:
+                      # bfloat16 rounding at 2 layers (the CPU tests:
+                      # 0.8-2.5e-2 at 4-6 sublayers against float32)
+DECODE_PROFILE_STEP = 8  # the decode call profiled (earlier calls warm up)
 
 # the TPU kernel each CUDA kernel replaces (its pallas_call), and the path
 # whose launch count the kernels line reports
@@ -1717,14 +1772,37 @@ def serving_phase(model, strat_model, x, t, delta) -> dict:
 # Phase 12: the deep-survival serving path
 # ---------------------------------------------------------------------------
 
-def _profiled_batch(fn, host: bool = False) -> dict:
-    """One call of ``fn`` under torch.profiler after a warm-up call: wall
-    and device-busy ms, the idle share, the device kernels launched and the
-    five with the most device time; with ``host``, also the host's
-    operators with the most self time over a further call profiled on the
-    host alone (the profiler's own cost included)."""
+def _profile_once(fn) -> tuple:
+    """(fn(), its reading) for one call of ``fn`` under torch.profiler: wall
+    and device-busy ms, the idle share, the device kernels launched, the
+    matmul kernels' ms and the five kernels with the most device time."""
     import torch
     from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kernels = [(e.key, e.device_time_total / 1e3, e.count)
+               for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    busy = sum(ms for _, ms, _ in kernels)
+    top = sorted(kernels, key=lambda kv: -kv[1])[:5]
+    return out, {"wall_ms": wall, "busy_ms": busy, "idle": 1 - busy / wall,
+                 "kernels": sum(c for _, _, c in kernels),
+                 "gemm_ms": sum(ms for k, ms, _ in kernels
+                                if any(w in k.lower() for w in GEMM_KERNELS)),
+                 "top_kernels_ms": [[k[:60], ms] for k, ms, _ in top]}
+
+
+def _profiled_batch(fn, host: bool = False) -> dict:
+    """``_profile_once``'s reading of one call of ``fn`` after a warm-up
+    call; with ``host``, also the host's operators with the most self time
+    over a further call profiled on the host alone (the profiler's own
+    cost included)."""
+    import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -1732,25 +1810,11 @@ def _profiled_batch(fn, host: bool = False) -> dict:
     # a window with no device activity at all is profiled once more, as in
     # device_ms; a second empty one fails
     for _ in range(2):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3
-        events = prof.key_averages()
-        kernels = [(e.key, e.device_time_total / 1e3, e.count)
-                   for e in events if e.device_type == DeviceType.CUDA]
-        busy = sum(ms for _, ms, _ in kernels)
-        if busy > 0:
+        _, out = _profile_once(fn)
+        if out["busy_ms"] > 0:
             break
         log("  torch.profiler recorded no device activity; profiling again")
-    check(busy > 0, "torch.profiler recorded no device activity")
-    top = sorted(kernels, key=lambda kv: -kv[1])[:5]
-    out = {"wall_ms": wall, "busy_ms": busy, "idle": 1 - busy / wall,
-           "kernels": sum(c for _, _, c in kernels),
-           "gemm_ms": sum(ms for k, ms, _ in kernels
-                          if any(w in k.lower() for w in GEMM_KERNELS)),
-           "top_kernels_ms": [[k[:60], ms] for k, ms, _ in top]}
+    check(out["busy_ms"] > 0, "torch.profiler recorded no device activity")
     if host:
         with profile(activities=[ProfilerActivity.CPU]) as prof:
             fn()
@@ -2586,6 +2650,452 @@ def train_phase(x, t, delta, lam2: float) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 14: batched decode through launch.serve
+# ---------------------------------------------------------------------------
+
+def _decode_model(cfg):
+    """``cfg``'s model on the card, weights drawn from a generator seeded
+    SEED."""
+    import torch
+
+    from repro_torch.models import build_model
+
+    return build_model(cfg, device="cuda", generator=torch.Generator(
+        "cuda").manual_seed(SEED))
+
+
+def _record(model, profile_at=None) -> dict:
+    """Wrap ``model``'s prefill and decode_step (instance attributes, which
+    ``serve_batch`` calls) until ``_unrecord``: every call's logits as a
+    float32 copy, the cache the last call returned, the prefill's seconds
+    (synchronised), the host time at which each decode call starts, and
+    torch.profiler's reading of decode call ``profile_at`` (the next one
+    when that window recorded no device time)."""
+    import torch
+
+    rec = {"logits": [], "starts": [], "cache": None, "profile": None,
+           "profile_at": profile_at}
+    prefill, decode = model.prefill, model.decode_step
+
+    def recorded_prefill(batch, max_len=0):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = prefill(batch, max_len=max_len)
+        torch.cuda.synchronize()
+        rec["prefill_s"] = time.perf_counter() - t0
+        rec["logits"].append(logits.float().clone())
+        rec["cache"] = cache
+        return logits, cache
+
+    def recorded_decode(cache, tokens):
+        rec["starts"].append(time.perf_counter())
+        if len(rec["starts"]) - 1 == rec["profile_at"]:
+            (logits, cache), reading = _profile_once(
+                lambda: decode(cache, tokens))
+            if reading["busy_ms"] > 0:
+                rec["profile"] = reading
+            else:
+                log("  torch.profiler recorded no device activity; "
+                    "profiling the next step")
+                rec["profile_at"] += 1
+        else:
+            logits, cache = decode(cache, tokens)
+        rec["logits"].append(logits.float().clone())
+        rec["cache"] = cache
+        return logits, cache
+
+    model.prefill, model.decode_step = recorded_prefill, recorded_decode
+    return rec
+
+
+def _unrecord(model) -> None:
+    del model.prefill, model.decode_step
+
+
+def _serve_case(model, prompt: int, new: int, seed: int,
+                profile: bool = True) -> dict:
+    """DECODE_REQUESTS requests of ``prompt`` tokens and ``new`` new tokens
+    drawn from ``seed`` (an encoder-decoder's source frames too, one a
+    prompt token) served through ``launch.serve.serve_batch``: the tokens,
+    the recorded logits and last cache, prefill seconds, decode seconds a
+    step (the median interval between decode calls, each ending in the
+    host's read of the tokens) and tokens a second, peak memory and, with
+    ``profile``, one profiled decode step."""
+    import numpy as np
+    import torch
+
+    from repro_torch.launch import serve
+
+    cfg = model.cfg
+    rng = np.random.default_rng(seed)
+    reqs = [serve.Request(rid=i, prompt=rng.integers(0, cfg.vocab_size,
+                                                     prompt), max_new=new)
+            for i in range(DECODE_REQUESTS)]
+    src = None
+    if cfg.family == "encdec":
+        src = rng.standard_normal((DECODE_REQUESTS, prompt, cfg.d_model)
+                                  ).astype(np.float32)
+    prompts = np.stack([r.prompt for r in reqs])
+    rec = _record(model, DECODE_PROFILE_STEP if profile else None)
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        _, seconds = _timed(lambda: serve.serve_batch(model, reqs,
+                                                      src_embeds=src))
+    finally:
+        _unrecord(model)
+    tokens = np.array([r.out for r in reqs])
+    check(tokens.shape == (DECODE_REQUESTS, new)
+          and bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all()),
+          f"{cfg.name}: served tokens {tokens.shape}")
+    check(len(rec["logits"]) == new + 1
+          and all(bool(torch.isfinite(lg[:, :cfg.vocab_size]).all())
+                  for lg in rec["logits"]),
+          f"{cfg.name}: logits of {len(rec['logits'])} calls, or not finite")
+    check(not profile or rec["profile"] is not None,
+          f"{cfg.name}: no profiled decode step")
+    step_s = statistics.median(np.diff(rec["starts"]))
+    out = {"prompt": prompt, "new": new, "requests": DECODE_REQUESTS,
+           "seconds": seconds, "prefill_s": rec["prefill_s"],
+           "decode_s_per_step": step_s,
+           "tokens_per_s": DECODE_REQUESTS / step_s,
+           "prefill_tokens_per_s": DECODE_REQUESTS * prompt
+           / rec["prefill_s"],
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    if profile:
+        out["profiled_step"] = rec["profile"]
+    return {"out": out, "rec": rec, "prompts": prompts, "tokens": tokens,
+            "src": src}
+
+
+def _check_cache(model, served: dict) -> dict:
+    """The last cache: every leaf of ``Model.init_cache``'s shape and dtype
+    for the longest prompt plus the new tokens plus one (a sliding window
+    capped at the window), and its length the prompt plus the steps."""
+    from repro_torch.models.model import Model
+
+    cache = served["rec"]["cache"]
+    prompt, new = served["out"]["prompt"], served["out"]["new"]
+    want = Model(model.cfg, device="meta").init_cache(
+        DECODE_REQUESTS, prompt + new + 1, src_len=prompt)
+    shapes = {f: list(getattr(cache, f).shape) for f in cache._fields}
+    for f in cache._fields:
+        got, spec = getattr(cache, f), getattr(want, f)
+        check(got.shape == spec.shape and got.dtype == spec.dtype,
+              f"{model.cfg.name}: cache {f} {tuple(got.shape)} {got.dtype}, "
+              f"expected {tuple(spec.shape)} {spec.dtype}")
+    check(bool((cache.length == prompt + new).all()),
+          f"{model.cfg.name}: cache length {cache.length.tolist()}, "
+          f"expected {prompt + new}")
+    return shapes
+
+
+def _twin32(model):
+    """``model``'s float32 twin on the card: the same weights, copied
+    parameter by parameter (no float32 copy of the whole state beside
+    it)."""
+    import torch
+
+    from repro_torch.models import build_model
+
+    twin = build_model(model.cfg.scaled(dtype="float32"), device="cuda")
+    src = model.state_dict()
+    with torch.no_grad():
+        for name, t in twin.state_dict().items():
+            t.copy_(src[name])
+    return twin
+
+
+def _batch_of(served: dict, tokens) -> dict:
+    import torch
+
+    batch = {"tokens": torch.as_tensor(tokens, device="cuda")}
+    if served["src"] is not None:
+        batch["src_embeds"] = torch.as_tensor(served["src"], device="cuda")
+    return batch
+
+
+def _teacher_forced(model, served: dict) -> list:
+    """``model``'s logits (float32) for the served prompts, then for one
+    decode step on each token the served run emitted."""
+    import torch
+
+    tokens = torch.as_tensor(served["tokens"], device="cuda")
+    prompt, new = served["out"]["prompt"], served["out"]["new"]
+    logits, cache = model.prefill(_batch_of(served, served["prompts"]),
+                                  max_len=prompt + new + 1)
+    out = [logits.float()]
+    for s in range(new):
+        logits, cache = model.decode_step(cache, tokens[:, s:s + 1])
+        out.append(logits.float())
+    return out
+
+
+def _full_logits(model, served: dict):
+    """``model``'s full forward over the prompts and the emitted tokens:
+    causal, so position p of one forward over all of them is the forward
+    over the first p + 1; the logits (B, new + 1, V) at the positions of
+    the prefill's and every decode step's."""
+    import numpy as np
+    import torch
+
+    toks = np.concatenate([served["prompts"], served["tokens"]], axis=1)
+    with torch.no_grad():
+        hidden, _ = model.hidden_states(_batch_of(served, toks),
+                                        remat=False)
+        return model._logits(hidden[:, served["out"]["prompt"] - 1:]).float()
+
+
+def _step_errors(got: list, want, v: int) -> tuple:
+    """(worst ||diff|| / ||ref||, worst max |diff| / max |ref|) over the
+    calls, the real vocabulary's logits."""
+    errs, max_errs = [], []
+    for s, g in enumerate(got):
+        ref = want[:, s, :v]
+        diff = g[:, :v] - ref
+        errs.append(float(diff.norm() / ref.norm()))
+        max_errs.append(float(diff.abs().max() / ref.abs().max()))
+    return max(errs), max(max_errs)
+
+
+def _against_forward(model, served: dict) -> dict:
+    """Each recorded call's logits (the prefill's, then every decode
+    step's) against the same model's full forward over the prompt and the
+    tokens emitted, in bfloat16 (DECODE_BF16_RTOL); then the same in the
+    model's float32 twin, teacher-forced to those tokens
+    (DECODE_F32_RTOL)."""
+    import torch
+
+    cfg = model.cfg
+    v = cfg.vocab_size
+    out = dict(zip(("rel_err", "max_rel_err"), _step_errors(
+        served["rec"]["logits"], _full_logits(model, served), v)))
+    twin = _twin32(model)
+    out.update(zip(("f32_rel_err", "f32_max_rel_err"), _step_errors(
+        _teacher_forced(twin, served), _full_logits(twin, served), v)))
+    del twin
+    torch.cuda.empty_cache()
+    out["steps_checked"] = served["out"]["new"] + 1
+    log(f"    decode against the full forward, {out['steps_checked']} "
+        f"calls: bfloat16 worst ||diff|| / ||ref|| {out['rel_err']:.3e} "
+        f"(tol {DECODE_BF16_RTOL:.0e}), max |diff| / max |ref| "
+        f"{out['max_rel_err']:.3e}; float32 twin {out['f32_rel_err']:.3e} "
+        f"(tol {DECODE_F32_RTOL:.0e}), {out['f32_max_rel_err']:.3e}")
+    check(out["rel_err"] <= DECODE_BF16_RTOL,
+          f"{cfg.name}: bfloat16 decode differs from the full forward by "
+          f"{out['rel_err']:.3e}")
+    check(out["f32_rel_err"] <= DECODE_F32_RTOL,
+          f"{cfg.name}: float32 decode differs from the full forward by "
+          f"{out['f32_rel_err']:.3e}")
+    return out
+
+
+def _log_served(name: str, out: dict) -> None:
+    prof = out.get("profiled_step")
+    log(f"    {name}: {out['requests']} x {out['prompt']} + {out['new']}: "
+        f"prefill {out['prefill_s']:.3f} s "
+        f"({out['prefill_tokens_per_s']:.0f} tokens/s), decode "
+        f"{out['decode_s_per_step'] * 1e3:.2f} ms a step "
+        f"({out['tokens_per_s']:.1f} tokens/s), peak {out['peak_gb']:.2f} GB"
+        + (f"; one profiled step {prof['wall_ms']:.2f} ms, device busy "
+           f"{prof['busy_ms']:.2f} ms (idle {prof['idle']:.1%}), "
+           f"{prof['kernels']} kernels" if prof else ""))
+
+
+def _routes(record: list, replay=None):
+    """A stand-in for ``moe.moe_ffn`` that appends each call's top-k
+    experts to ``record`` or, given ``replay`` (an iterator over such a
+    record), routes each call to the recorded experts: their weights from
+    this call's own router probabilities, renormalized."""
+    import torch
+
+    from repro_torch.models import moe
+
+    def moe_ffn(params, x, n_experts_per_tok=2, capacity_factor=1.25):
+        probs, topv, topi = moe.route(params, x, n_experts_per_tok)
+        record.append(topi)
+        if replay is not None:
+            topi = next(replay)
+            topv = probs.gather(1, topi)
+            topv = (topv / topv.sum(dim=-1, keepdim=True)).to(x.dtype)
+        return moe.dispatch(params, x, probs, topv, topi, capacity_factor)
+
+    return moe_ffn
+
+
+def _moe_twin(cfg) -> dict:
+    """mixtral at MOE_TWIN_LAYERS layers served in bfloat16, against its
+    float32 twin (the same weights) prefilled on the same prompts and
+    decoding the bfloat16 run's tokens through the bfloat16 run's
+    experts: a router near-tie (a top-2 that bfloat16 rounding reorders)
+    would send a token through other experts, an O(1) change, so the twin
+    replays the routes and counts the calls where its own would differ."""
+    import torch
+
+    from repro_torch.models import moe
+
+    model = _decode_model(cfg.scaled(n_layers=MOE_TWIN_LAYERS))
+    real = moe.moe_ffn
+    routes, own = [], []
+    moe.moe_ffn = _routes(routes)
+    try:
+        served = _serve_case(model, DECODE_C10_PROMPT, DECODE_CASES[0][3],
+                             SEED + 140, profile=False)
+        twin = _twin32(model)
+        del model
+        moe.moe_ffn = _routes(own, replay=iter(routes))
+        want = _teacher_forced(twin, served)
+    finally:
+        moe.moe_ffn = real
+    check(len(own) == len(routes), "the twin's MoE calls")
+    flips = sum(int((a.sort(-1).values != b.sort(-1).values).any(-1).sum())
+                for a, b in zip(routes, own))
+    v = cfg.vocab_size
+    got = torch.stack([lg[:, :v] for lg in served["rec"]["logits"]])
+    want = torch.stack([lg[:, :v] for lg in want])
+    steps = ((got - want).flatten(1).norm(dim=1)
+             / want.flatten(1).norm(dim=1))
+    out = {"layers": MOE_TWIN_LAYERS, "prompt": DECODE_C10_PROMPT,
+           "new": served["out"]["new"],
+           "rel_err": float((got - want).norm() / want.norm()),
+           "worst_step_rel_err": float(steps.max()),
+           "max_rel_err": float((got - want).abs().max()
+                                / want.abs().max()),
+           "routes": sum(int(r.shape[0]) for r in routes),
+           "routes_float32_would_change": flips}
+    log(f"    MoE, {MOE_TWIN_LAYERS} layers, bfloat16 against float32 "
+        f"(teacher-forced to the tokens and the {out['routes']} routes, "
+        f"{flips} of which float32 would send elsewhere; {len(steps)} "
+        f"calls): worst step ||diff|| / ||f32|| "
+        f"{out['worst_step_rel_err']:.3e} (tol {MOE_TWIN_RTOL:.0e}), all "
+        f"steps {out['rel_err']:.3e}, max |diff| / max |f32| "
+        f"{out['max_rel_err']:.3e}")
+    check(out["worst_step_rel_err"] <= MOE_TWIN_RTOL,
+          f"mixtral: bfloat16 decode differs from float32 by "
+          f"{out['worst_step_rel_err']:.3e}")
+    del twin
+    torch.cuda.empty_cache()
+    return out
+
+
+def _vlm_prefills(model, served: dict) -> dict:
+    """qwen2-vl's prefill fed the stub frontend's patch embeddings (here
+    the prompts' own embeddings) with (3, B, S) M-RoPE positions: with
+    equal t, h and w rows it is the token prefill (held at DECODE_BF16_RTOL;
+    the same ops on the same values, so expected equal); with rows that
+    differ, finite and another result."""
+    import torch
+
+    toks = torch.as_tensor(served["prompts"], device="cuda")
+    b, s = toks.shape
+    pos = torch.arange(s, device="cuda")[None, :].expand(b, s)
+    emb = model.embed[toks.long()]
+    a, _ = model.prefill({"tokens": toks})
+    same, _ = model.prefill({"embeds": emb,
+                             "positions": torch.stack([pos, pos, pos])})
+    other, _ = model.prefill({"embeds": emb, "positions": torch.stack(
+        [pos, pos // 16, pos % 16])})
+    v = model.cfg.vocab_size
+    a, same, other = (t[:, :v].float() for t in (a, same, other))
+    out = {"same_rows_rel_err": float((same - a).norm() / a.norm()),
+           "other_rows_rel_diff": float((other - a).norm() / a.norm())}
+    log(f"    M-RoPE prefill from embeddings: equal rows against the "
+        f"token prefill {out['same_rows_rel_err']:.3e} (tol "
+        f"{DECODE_BF16_RTOL:.0e}); rows (t, t // 16, t % 16) move the logits by "
+        f"{out['other_rows_rel_diff']:.3e}")
+    check(out["same_rows_rel_err"] <= DECODE_BF16_RTOL
+          and bool(torch.isfinite(other).all())
+          and out["other_rows_rel_diff"] > 0,
+          f"qwen2-vl M-RoPE prefill: {out}")
+    return out
+
+
+def _decode_case(arch: str, layers, prompt: int, new: int, k: int) -> dict:
+    """One architecture of DECODE_CASES: built at its published widths
+    (cut to ``layers``), served, its cache and its decode against the full
+    forward checked (mixtral's MoE against its float32 twin instead, and
+    its dense variant against the forward, also under the window)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tf
+
+    t0 = time.perf_counter()
+    cfg = get_config(arch)
+    if layers:
+        cfg = cfg.scaled(n_layers=layers)
+    check(cfg.dtype == "bfloat16", f"{arch}: {cfg.dtype}")
+    model = _decode_model(cfg)
+    res = {"layers": cfg.n_layers, "published_layers": get_config(
+        arch).n_layers, "weights_gb": sum(
+            p.numel() * p.element_size() for p in model.parameters()) / 1e9}
+    log(f"  {arch}: {cfg.n_layers} of {res['published_layers']} layers, "
+        f"{res['weights_gb']:.2f} GB of bfloat16 weights")
+    served = _serve_case(model, prompt, new, SEED + 140 + k)
+    _log_served(arch, served["out"])
+    res.update(served["out"])
+    res["cache"] = _check_cache(model, served)
+    if cfg.family == "moe":
+        short = _serve_case(model, DECODE_C10_PROMPT, new, SEED + 150,
+                            profile=False)
+        _log_served(f"{arch} under the window", short["out"])
+        res["under_window"] = dict(short["out"],
+                                   cache=_check_cache(model, short))
+        slots = [res["cache"]["k"][2], res["under_window"]["cache"]["k"][2]]
+        check(slots == [tf.cache_slots(cfg, p + new + 1)
+                        for p in (prompt, DECODE_C10_PROMPT)]
+              and slots[0] == cfg.sliding_window,
+              f"{arch}: sliding-window slots {slots}")
+        log(f"    sliding-window cache slots {slots} for prompts "
+            f"{prompt} and {DECODE_C10_PROMPT} (window "
+            f"{cfg.sliding_window})")
+        del model, served, short
+        torch.cuda.empty_cache()
+        res["moe_twin"] = _moe_twin(cfg)
+        dense = _decode_model(cfg.scaled(n_experts=0, n_experts_per_tok=0,
+                                         family="dense"))
+        log(f"  {arch}'s dense variant (n_experts=0)")
+        res["dense_variant"] = {}
+        for p in (prompt, DECODE_C10_PROMPT):
+            served = _serve_case(dense, p, new, SEED + 160 + p,
+                                 profile=False)
+            _log_served(f"dense variant, prompt {p}", served["out"])
+            res["dense_variant"][str(p)] = dict(
+                served["out"], cache=_check_cache(dense, served),
+                **_against_forward(dense, served))
+        del dense, served
+    else:
+        res.update(_against_forward(model, served))
+        if cfg.mrope_sections:
+            res["mrope_prefill"] = _vlm_prefills(model, served)
+        del model, served
+    torch.cuda.empty_cache()
+    res["case_seconds"] = time.perf_counter() - t0
+    return res
+
+
+def decode_phase() -> dict:
+    """Phase 14: batched decode through ``launch.serve.serve_batch`` for
+    DECODE_CASES at their published widths, each architecture freed
+    before the next. The kernel counts are zeroed before and read after:
+    no module of the decode path reaches a kernel of its own."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    log("phase 14: batched decode")
+    t0 = time.perf_counter()
+    ops.reset_launch_counts()
+    out = {arch: _decode_case(arch, layers, prompt, new, k)
+           for k, (arch, layers, prompt, new) in enumerate(DECODE_CASES)}
+    launches = ops.launch_counts()
+    _check_counts("decode path", launches, {})
+    out["launches"] = launches
+    out["seconds"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Phase 7: the streaming fit
 # ---------------------------------------------------------------------------
 
@@ -3361,6 +3871,11 @@ def main() -> int:
     for name in ("revcumsum", "cox_coord", "lipschitz", "survival_curves"):
         check(train_out["launches"][name] > 0,
               f"{name} did not launch on the training path")
+    torch.cuda.empty_cache()
+
+    decode_out = decode_phase()
+    log(f"  phase 14 took {decode_out['seconds']:.1f} s")
+    launches["decode"] = decode_out["launches"]
     log(f"  total {time.perf_counter() - t_start:.1f} s")
 
     kernels = []
@@ -3393,6 +3908,7 @@ def main() -> int:
         "baselines": base["steps"]}))
     print(json.dumps({"deep": deep_out}))
     print(json.dumps({"train": train_out}))
+    print(json.dumps({"decode": decode_out}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -69,6 +69,10 @@ def _tensor(a) -> torch.Tensor:
     return torch.from_numpy(a)
 
 
+# the reference's stacked (L, ...) subtrees, and the config field giving L
+STACKED = {"layers": "n_layers", "enc_layers": "encoder_layers"}
+
+
 def _rename(cfg: ModelConfig, tree: Mapping[str, Any], dtype=None
             ) -> Dict[str, torch.Tensor]:
     """The reference's tree of the model's shape as the port's state dict;
@@ -82,11 +86,13 @@ def _rename(cfg: ModelConfig, tree: Mapping[str, Any], dtype=None
     unused = []
     for name, leaf in _leaves(tree):
         t = _tensor(leaf)
-        if name.startswith("layers."):
-            if t.shape[0] != cfg.n_layers:
+        top, _, rest = name.partition(".")
+        if top in STACKED:
+            n = getattr(cfg, STACKED[top])
+            if t.shape[0] != n:
                 raise ValueError(f"{name}: leading axis {t.shape[0]}, the "
-                                 f"config has {cfg.n_layers} layers")
-            names = [f"layers.{i}.{name[7:]}" for i in range(cfg.n_layers)]
+                                 f"config has {n} {top}")
+            names = [f"{top}.{i}.{rest}" for i in range(n)]
             parts = list(t)
         else:
             names, parts = [name], [t]
@@ -113,8 +119,11 @@ def model_params_from_jax(cfg: ModelConfig, params: Mapping[str, Any]
     """The port's ``Model`` state (``load_state_dict``'s argument, host
     tensors) from the reference's param tree as numpy arrays.
 
-    The reference stacks its layers on a leading axis L (``params["layers"]``,
-    scanned); each layer i becomes ``layers.{i}.<name>``. A ``cox_head`` in
+    The reference stacks its layers on a leading axis L (``params["layers"]``
+    and an encoder-decoder's ``params["enc_layers"]``, scanned); each layer
+    i becomes ``layers.{i}.<name>`` (``enc_layers.{i}.<name>``). Unstacked
+    subtrees (zamba2's ``shared`` block, ``enc_norm``) keep their names.
+    A ``cox_head`` in
     the tree (``deep.init_state`` puts it there) maps to the model's Cox
     head, which the port's model must have attached before loading. Raises
     on any leaf this leaves unused, any parameter it leaves unfilled, and

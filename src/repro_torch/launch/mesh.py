@@ -9,7 +9,7 @@ one-rank world made on first use when the caller has none.
 The reference's ``shard_map_compat``, ``mesh_context``, the production
 (data, model) meshes and their FSDP/TP axes are JAX seams with no
 counterpart here: the port shards rows over ranks or cards and keeps the
-``model`` axis at size 1 (ROADMAP A8b skips ``launch/sharding.py``).
+``model`` axis at size 1 (``launch/sharding.py`` is not ported).
 """
 from __future__ import annotations
 

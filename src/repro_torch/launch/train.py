@@ -7,8 +7,8 @@ config registry -> model -> TrainState -> train step -> deterministic
 pipeline -> heartbeat/straggler monitor -> async checkpointing with
 resume, on one device (``--device``, default ``cuda``). The reference's
 ``--production-mesh`` shards params over a 16 x 16 (data, model) mesh by
-``launch/sharding.py``'s FSDP/TP rules, which have no counterpart in the
-port (ROADMAP A8b): the flag is rejected rather than run unsharded.
+``launch/sharding.py``'s FSDP/TP rules, a JAX/GSPMD seam with no
+PyTorch counterpart: the flag is rejected rather than run unsharded.
 """
 from __future__ import annotations
 
@@ -59,7 +59,8 @@ def main(argv=None, on_step: Optional[Callable[[int, dict], None]] = None):
                     help="comma k=v ModelConfig overrides, e.g. "
                          "n_layers=8,d_model=512")
     ap.add_argument("--production-mesh", action="store_true",
-                    help="not ported: the 16x16 FSDP/TP mesh (ROADMAP A8b)")
+                    help="not ported: the 16x16 FSDP/TP mesh of "
+                         "launch/sharding.py, a JAX/GSPMD seam")
     ap.add_argument("--ckpt-dir", default="")
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--log-every", type=int, default=10)
@@ -70,8 +71,8 @@ def main(argv=None, on_step: Optional[Callable[[int, dict], None]] = None):
     args = ap.parse_args(argv)
     if args.production_mesh:
         ap.error("--production-mesh needs launch/sharding.py's FSDP/TP "
-                 "rules, which are not ported (ROADMAP A8b); the port "
-                 "trains on one device")
+                 "rules, a JAX/GSPMD seam with no PyTorch counterpart; "
+                 "the port trains on one device")
     dev = _device.resolve(args.device)
 
     cfg = get_config(args.arch)

@@ -1,3 +1,3 @@
-"""Backbone model zoo: the ``dense`` and ``ssm`` families' forward pass
-(``layers``, ``transformer``, ``ssm``, ``model``)."""
+"""Backbone model zoo: every family's forward pass, prefill and decode
+(``layers``, ``moe``, ``transformer``, ``ssm``, ``model``)."""
 from .model import build_model  # noqa: F401

@@ -1,5 +1,6 @@
-"""Shared transformer layers: RMSNorm, RoPE, grouped-query attention with
-optional QKV bias / sliding window / chunked streaming softmax, SwiGLU MLP.
+"""Shared transformer layers: RMSNorm, RoPE (incl. M-RoPE sections),
+grouped-query attention with optional QKV bias / sliding window / chunked
+streaming softmax, single-position decode attention, SwiGLU MLP.
 
 The PyTorch port's counterpart of the JAX package's ``models/layers.py``.
 Parameters live in ``nn.ParameterDict``s under the reference's names
@@ -11,13 +12,12 @@ each function rounds back to the model dtype where the reference does.
 
 ``flash_attention`` is the reference's streaming-softmax algorithm in plain
 PyTorch, blocked by ``q_chunk`` and ``kv_chunk`` as the reference is; the
-reference has no hand kernel here either. Not yet ported: 3-D M-RoPE
-positions, ``flash_attention``'s ``q_offset`` and ``decode_attention``
-(the decode path, ROADMAP A8b).
+reference has no hand kernel here either. ``flash_attention``'s
+``q_offset``, which no caller of the reference passes, is left out.
 """
 from __future__ import annotations
 
-from typing import Mapping, Optional
+from typing import Mapping, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -72,14 +72,26 @@ def rope_freqs(head_dim: int, theta: float, device="cpu") -> Tensor:
                                         device=device), exps)
 
 
-def apply_rope(x: Tensor, positions: Tensor, theta: float = 1e4) -> Tensor:
-    """x: (B, S, H, hd); positions: (B, S). Half-split rotation: the first
-    hd/2 channels pair with the last hd/2, in float32."""
-    if positions.dim() != 2:
-        raise NotImplementedError(
-            "3-D M-RoPE positions are not ported yet: ROADMAP A8b")
+def apply_rope(x: Tensor, positions: Tensor, theta: float = 1e4,
+               sections: Sequence[int] = ()) -> Tensor:
+    """x: (B, S, H, hd); positions: (B, S), or (3, B, S) for M-RoPE.
+    Half-split rotation: the first hd/2 channels pair with the last hd/2,
+    in float32.
+
+    M-RoPE (Qwen2-VL): the hd/2 rotary frequency channels are split into
+    ``sections`` (t, h, w) groups in order; group g rotates by
+    positions[g]."""
     freqs = rope_freqs(x.shape[-1], theta, x.device)
-    ang = positions[..., None].float() * freqs          # (B, S, hd/2)
+    if positions.dim() == 2:
+        ang = positions[..., None].float() * freqs      # (B, S, hd/2)
+    else:
+        if not sections:
+            raise ValueError("3-D positions need mrope sections")
+        bounds = torch.cumsum(torch.tensor(tuple(sections)), 0)
+        group = torch.searchsorted(bounds, torch.arange(freqs.shape[0]),
+                                   right=True)          # (hd/2,)
+        pos_g = positions[group.to(positions.device)]   # (hd/2, B, S)
+        ang = torch.movedim(pos_g, 0, -1).float() * freqs
     cos = torch.cos(ang)[:, :, None, :]
     sin = torch.sin(ang)[:, :, None, :]
     x1, x2 = x.float().chunk(2, dim=-1)
@@ -176,6 +188,33 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
             m = m_new
         out[:, q0:q0 + q_chunk] = acc / torch.clamp_min(l, 1e-30)[..., None]
     return out.reshape(b, sq, h, hd).to(q.dtype)
+
+
+def decode_attention(q: Tensor, k_cache: Tensor, v_cache: Tensor,
+                     cur_len: Tensor, window: int = -1,
+                     q_pos: Optional[Tensor] = None) -> Tensor:
+    """Single-position attention against a (B, S_max, KH, hd) cache, with
+    a float32 softmax.
+
+    q: (B, 1, H, hd). cur_len: (B,) number of valid cache entries (the new
+    token's K/V already written). Products of the cache's values are exact
+    in float32 and summed there, as the reference's float32 accumulation
+    of bfloat16 operands. window > 0 also masks the slots with
+    q_pos - slot >= window, for a cache whose slot is the key's absolute
+    position; q_pos: (B,) the query's position. Masked scores are -1e30."""
+    b, _, h, hd = q.shape
+    kh = k_cache.shape[2]
+    qg = q.reshape(b, kh, h // kh, hd).float()
+    s_ = torch.einsum("bkgd,bskd->bkgs", qg, k_cache.float())
+    s_ = s_ * hd ** -0.5
+    pos = torch.arange(k_cache.shape[1], device=q.device)
+    mask = pos[None, :] < cur_len[:, None]                 # (B, S)
+    if window > 0:
+        mask = mask & (q_pos[:, None] - pos[None, :] < window)
+    s_ = torch.where(mask[:, None, None, :], s_, -1e30)
+    p = torch.softmax(s_, dim=-1)
+    out = torch.einsum("bkgs,bskd->bkgd", p, v_cache.float())
+    return out.reshape(b, 1, h, hd).to(q.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,6 @@
 """Mamba2 SSD (state-space duality) block: the chunked dual form for the
-full-sequence forward.
+full-sequence forward (and its final state, for prefill), the O(1)-state
+recurrent step for decode.
 
 The PyTorch port's counterpart of the JAX package's ``models/ssm.py``.
 
@@ -9,10 +10,10 @@ Recurrence per head (Mamba2, arXiv:2405.21060):
 Chunked (SSD) evaluation over chunks of length Q:
     intra-chunk: masked (Q x Q) quadratic form, batched matmuls
     inter-chunk: per-chunk states carried by a loop over the chunks
-Not yet ported: the final state (``return_state``) and the recurrent
-decode step (ROADMAP A8b).
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -47,6 +48,11 @@ def init_mamba2(d_model: int, d_state: int, head_dim: int = 64,
     })
 
 
+class SSMState(NamedTuple):
+    conv: Tensor  # (B, conv_width-1, d_conv) rolling pre-conv inputs
+    ssm: Tensor   # (B, H, hd, N) recurrent state, float32
+
+
 def _causal_conv(xbc: Tensor, w: Tensor, b: Tensor) -> Tensor:
     """Depthwise causal conv over (B, S, C) with kernel (W, C), in the
     input's dtype, then silu rounded to it."""
@@ -57,17 +63,20 @@ def _causal_conv(xbc: Tensor, w: Tensor, b: Tensor) -> Tensor:
 
 
 def mamba2_forward(params, x: Tensor, *, d_state: int, head_dim: int = 64,
-                   expand: int = 2, chunk: int = 256) -> Tensor:
-    """x: (B, S, D) -> y: (B, S, D)."""
+                   expand: int = 2, chunk: int = 256,
+                   return_state: bool = False):
+    """x: (B, S, D) -> y: (B, S, D), and with ``return_state`` the final
+    ``SSMState``: the last conv_width - 1 pre-conv inputs (front-padded
+    with zeros when S is shorter) and the recurrent state."""
     b, s, d_model = x.shape
     d_inner = expand * d_model
     n_heads = d_inner // head_dim
     # jnp.split's cut indices [d_inner, 2 d_inner + 2 N] as slices
     proj = x @ params["w_in"]
     z = proj[..., :d_inner]
-    xbc = proj[..., d_inner:2 * d_inner + 2 * d_state]
+    xbc_in = proj[..., d_inner:2 * d_inner + 2 * d_state]
     dt = proj[..., 2 * d_inner + 2 * d_state:]
-    xbc = _causal_conv(xbc, params["conv_w"], params["conv_b"])
+    xbc = _causal_conv(xbc_in, params["conv_w"], params["conv_b"])
     xs = xbc[..., :d_inner]
     bb = xbc[..., d_inner:d_inner + d_state]
     cc = xbc[..., d_inner + d_state:]
@@ -75,14 +84,24 @@ def mamba2_forward(params, x: Tensor, *, d_state: int, head_dim: int = 64,
     a = -torch.exp(params["a_log"])                                # (H,)
 
     xh = xs.reshape(b, s, n_heads, head_dim)
-    y = _ssd_chunked(xh, dt, a, bb, cc, chunk)
+    y, st = _ssd_chunked(xh, dt, a, bb, cc, chunk)
     y = y + params["d_skip"][None, None, :, None] * xh.float()
     y = y.reshape(b, s, d_inner).to(x.dtype)
-    # gated RMSNorm (mamba2): norm(y * silu(z)), rounded before the scale
+    out = _gated_out(params, y, z, x.dtype)
+    if not return_state:
+        return out
+    tail = params["conv_w"].shape[0] - 1
+    conv = F.pad(xbc_in, (0, 0, max(0, tail - s), 0))[:, -tail:, :]
+    return out, SSMState(conv=conv, ssm=st)
+
+
+def _gated_out(params, y: Tensor, z: Tensor, dtype) -> Tensor:
+    """The gated RMSNorm of mamba2, norm(y * silu(z)) rounded before the
+    scale, then the output projection."""
     g = y * F.silu(z)
     g32 = g.float()
     var = torch.mean(g32 * g32, dim=-1, keepdim=True)
-    g = (g32 * torch.rsqrt(var + 1e-6)).to(x.dtype) * params["norm_scale"]
+    g = (g32 * torch.rsqrt(var + 1e-6)).to(dtype) * params["norm_scale"]
     return g @ params["w_out"]
 
 
@@ -90,7 +109,8 @@ def _ssd_chunked(xh: Tensor, dt: Tensor, a: Tensor, bb: Tensor,
                  cc: Tensor, chunk: int) -> Tensor:
     """Chunked SSD. xh: (B,S,H,hd); dt: (B,S,H) float32; a: (H,); bb/cc:
     (B,S,N) (one group). Pads S to whole chunks with dt = 0, so pad rows
-    neither decay nor feed the state. Returns y (B,S,H,hd) float32."""
+    neither decay nor feed the state. Returns (y (B,S,H,hd) float32, the
+    final state (B,H,hd,N) float32)."""
     b, s, h, hd = xh.shape
     n = bb.shape[-1]
     q = chunk
@@ -137,4 +157,40 @@ def _ssd_chunked(xh: Tensor, dt: Tensor, a: Tensor, bb: Tensor,
     # inter-chunk: y[t] += C_t (exp(L_t) st_in)
     y_inter = torch.einsum("bcqn,bcqh,bchdn->bcqhd", ccx,
                            torch.exp(torch.clamp(cum, -60.0, 0.0)), st_in)
-    return (y_intra + y_inter).reshape(b, nc * q, h, hd)[:, :s]
+    return (y_intra + y_inter).reshape(b, nc * q, h, hd)[:, :s], st
+
+
+def mamba2_decode_step(params, x: Tensor, state: SSMState, *, d_state: int,
+                       head_dim: int = 64, expand: int = 2):
+    """Single-token recurrent step. x: (B, 1, D) -> (y (B, 1, D), the next
+    ``SSMState``); the recurrent state stays float32."""
+    b, _, d_model = x.shape
+    d_inner = expand * d_model
+    n_heads = d_inner // head_dim
+    proj = x @ params["w_in"]
+    z = proj[..., :d_inner]
+    xbc_new = proj[..., d_inner:2 * d_inner + 2 * d_state]
+    dt = proj[..., 2 * d_inner + 2 * d_state:]
+    # rolling conv window: state.conv holds the previous (width-1) inputs;
+    # summed tap by tap in the input's dtype as _causal_conv sums them, so
+    # that a decode step rounds as the prefill did
+    win = torch.cat([state.conv, xbc_new], dim=1)                # (B, W, C)
+    w = params["conv_w"]
+    out = sum(win[:, i:i + 1, :] * w[i] for i in range(w.shape[0]))
+    xbc = F.silu(out + params["conv_b"]).to(x.dtype)
+
+    xs = xbc[..., :d_inner]
+    bvec = xbc[:, 0, d_inner:d_inner + d_state].float()
+    cvec = xbc[:, 0, d_inner + d_state:].float()
+    dt = F.softplus(dt.float() + params["dt_bias"])[:, 0]        # (B, H)
+    a = -torch.exp(params["a_log"])
+    xhh = xs.reshape(b, n_heads, head_dim).float()
+
+    dec = torch.exp(dt * a)
+    upd = torch.einsum("bh,bhd,bn->bhdn", dt, xhh, bvec)
+    new_ssm = state.ssm * dec[..., None, None] + upd
+    y = torch.einsum("bhdn,bn->bhd", new_ssm, cvec) \
+        + params["d_skip"][None, :, None] * xhh
+    y = y.reshape(b, 1, d_inner).to(x.dtype)
+    return _gated_out(params, y, z, x.dtype), \
+        SSMState(conv=win[:, 1:], ssm=new_ssm)

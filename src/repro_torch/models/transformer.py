@@ -1,55 +1,196 @@
-"""Decoder-only transformer blocks and their per-layer attention pattern.
+"""Transformer blocks (dense or MoE feed-forward, optional cross
+attention), their KV cache and decode step, and the per-layer attention
+pattern.
 
 The PyTorch port's counterpart of the JAX package's
 ``models/transformer.py``. Where the reference scans stacked (L, ...)
 params with the per-layer window and theta as scanned arrays, the port
 keeps one ``nn.ModuleDict`` per layer and loops over them; the pattern is
-a pair of host arrays. Not yet ported: MoE feed-forwards, cross attention,
-KV caches and ``block_decode`` (ROADMAP A8b).
+a pair of host arrays. A cache is a NamedTuple of tensors stacked over the
+layers as the reference's; ``block_decode`` writes one layer's slice in
+place (a row-indexed write, the same bits as the reference's one-hot
+blend).
 """
 from __future__ import annotations
+
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
 from ..configs.base import ModelConfig
-from . import layers
-from .layers import apply_rope, flash_attention, mlp, qkv_project, rmsnorm
+from . import layers, moe
+from .layers import apply_rope, decode_attention, flash_attention, mlp, \
+    qkv_project, rmsnorm
 
 Tensor = torch.Tensor
 
 
-def init_block(cfg: ModelConfig, dtype=torch.bfloat16,
-               device="cuda") -> nn.ModuleDict:
-    if cfg.n_experts > 0:
-        raise NotImplementedError("MoE blocks are not ported yet: ROADMAP A8b")
-    return nn.ModuleDict({
+# ---------------------------------------------------------------------------
+# KV cache
+# ---------------------------------------------------------------------------
+
+class KVCache(NamedTuple):
+    k: Tensor        # (L, B, S_cache, KH, hd)
+    v: Tensor
+    length: Tensor   # (B,) tokens so far (absolute position), int32
+
+
+def cache_slots(cfg: ModelConfig, max_len: int) -> int:
+    """Slots of a self-attention cache that must hold ``max_len``
+    positions: a sliding-window cache rolls, so it never holds more than
+    the window."""
+    return max_len if cfg.sliding_window <= 0 \
+        else min(max_len, cfg.sliding_window)
+
+
+def init_kv_cache(cfg: ModelConfig, n_layers: int, batch: int,
+                  max_len: int, dtype=torch.bfloat16,
+                  device="cuda") -> KVCache:
+    shape = (n_layers, batch, cache_slots(cfg, max_len), cfg.n_kv_heads,
+             cfg.head_dim)
+    return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
+                   v=torch.zeros(shape, dtype=dtype, device=device),
+                   length=torch.zeros(batch, dtype=torch.int32,
+                                      device=device))
+
+
+def _cache_write(k_cache: Tensor, v_cache: Tensor, k_new: Tensor,
+                 v_new: Tensor, pos: Tensor) -> None:
+    """Write one position (B, 1, KH, hd) at slot ``pos`` (B,) of each
+    row, in place; rolling caches pass pos = cur_len % window."""
+    rows = torch.arange(k_cache.shape[0], device=k_cache.device)
+    k_cache[rows, pos] = k_new[:, 0]
+    v_cache[rows, pos] = v_new[:, 0]
+
+
+# ---------------------------------------------------------------------------
+# Transformer blocks
+# ---------------------------------------------------------------------------
+
+def init_block(cfg: ModelConfig, dtype=torch.bfloat16, device="cuda",
+               cross_attn: bool = False) -> nn.ModuleDict:
+    p = {
         "ln1": layers.init_rmsnorm(cfg.d_model, dtype, device),
         "attn": layers.init_attention(cfg.d_model, cfg.n_heads,
                                       cfg.n_kv_heads, cfg.head_dim,
                                       cfg.qkv_bias, dtype, device),
         "ln2": layers.init_rmsnorm(cfg.d_model, dtype, device),
-        "mlp": layers.init_mlp(cfg.d_model, cfg.d_ff, dtype, device),
-    })
+    }
+    if cfg.n_experts > 0:
+        p["moe"] = moe.init_moe(cfg.d_model, cfg.d_ff, cfg.n_experts, dtype,
+                                device)
+    else:
+        p["mlp"] = layers.init_mlp(cfg.d_model, cfg.d_ff, dtype, device)
+    if cross_attn:
+        p["ln_x"] = layers.init_rmsnorm(cfg.d_model, dtype, device)
+        p["xattn"] = layers.init_attention(cfg.d_model, cfg.n_heads,
+                                           cfg.n_kv_heads, cfg.head_dim,
+                                           False, dtype, device)
+    return nn.ModuleDict(p)
+
+
+def _ffn(p, cfg: ModelConfig, x: Tensor) -> Tuple[Tensor, Tensor]:
+    """The block's feed-forward on its pre-normed input: (out, aux)."""
+    if cfg.n_experts > 0:
+        return moe.moe_ffn(p["moe"], x, cfg.n_experts_per_tok)
+    return mlp(p["mlp"], x), torch.zeros((), dtype=torch.float32,
+                                         device=x.device)
+
+
+def cross_kv(p, cfg: ModelConfig, enc_out: Tensor) -> Tuple[Tensor, Tensor]:
+    """The cross-attention K/V (B, S_src, KH, hd) of one decoder block."""
+    b, s = enc_out.shape[:2]
+    shape = (b, s, cfg.n_kv_heads, cfg.head_dim)
+    return ((enc_out @ p["xattn"]["wk"]).reshape(shape),
+            (enc_out @ p["xattn"]["wv"]).reshape(shape))
 
 
 def block_forward(p, cfg: ModelConfig, x: Tensor, positions: Tensor,
-                  window: int, theta: float):
-    """Full-sequence causal block (train / prefill). Returns (x, aux); aux
-    is the MoE load-balancing loss, 0 without experts."""
+                  window: int, theta: float, *, causal: bool = True,
+                  enc_out: Optional[Tensor] = None, want_kv: bool = False):
+    """Full-sequence block (train / prefill). Returns (x, aux, (k, v) or
+    None); aux is the MoE load-balancing loss, 0 without experts."""
     h = rmsnorm(p["ln1"], x, cfg.rms_eps)
     q, k, v = qkv_project(p["attn"], h, cfg.n_heads, cfg.n_kv_heads,
                           cfg.head_dim)
-    q = apply_rope(q, positions, theta)
-    k = apply_rope(k, positions, theta)
-    o = flash_attention(q, k, v, window=window, q_chunk=cfg.q_chunk,
-                        kv_chunk=cfg.kv_chunk)
+    q = apply_rope(q, positions, theta, cfg.mrope_sections)
+    k = apply_rope(k, positions, theta, cfg.mrope_sections)
+    o = flash_attention(q, k, v, causal=causal, window=window,
+                        q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk)
     x = x + o.reshape(x.shape[0], x.shape[1], -1) @ p["attn"]["wo"]
-    h = rmsnorm(p["ln2"], x, cfg.rms_eps)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return x + mlp(p["mlp"], h), aux
 
+    if enc_out is not None:
+        h = rmsnorm(p["ln_x"], x, cfg.rms_eps)
+        qx = (h @ p["xattn"]["wq"]).reshape(
+            x.shape[0], x.shape[1], cfg.n_heads, cfg.head_dim)
+        kx, vx = cross_kv(p, cfg, enc_out)
+        ox = flash_attention(qx, kx, vx, causal=False, q_chunk=cfg.q_chunk,
+                             kv_chunk=cfg.kv_chunk)
+        x = x + ox.reshape(x.shape[0], x.shape[1], -1) @ p["xattn"]["wo"]
+
+    m, aux = _ffn(p, cfg, rmsnorm(p["ln2"], x, cfg.rms_eps))
+    return x + m, aux, ((k, v) if want_kv else None)
+
+
+def prefill_cache_kv(k_cache: Tensor, v_cache: Tensor, k: Tensor,
+                     v: Tensor) -> None:
+    """Write full-sequence (B, S, KH, hd) K/V into a zeroed cache of one
+    layer, (B, S_cache, KH, hd), in place: at slots 0..S-1 when they fit,
+    or, past a sliding window (S > S_cache == window), the last S_cache
+    entries rolled so that slot == pos % window."""
+    s, slots = k.shape[1], k_cache.shape[1]
+    if s > slots:
+        k_cache.copy_(torch.roll(k[:, -slots:], s % slots, dims=1))
+        v_cache.copy_(torch.roll(v[:, -slots:], s % slots, dims=1))
+    else:
+        k_cache[:, :s] = k
+        v_cache[:, :s] = v
+
+
+def block_decode(p, cfg: ModelConfig, x: Tensor, cur_len: Tensor,
+                 window: int, theta: float, k_cache: Tensor, v_cache: Tensor,
+                 enc_kv: Optional[Tuple[Tensor, Tensor]] = None) -> Tensor:
+    """One-token block step against the cache, which it writes in place.
+    x: (B, 1, D); k_cache, v_cache: (B, S_cache, KH, hd), one layer's.
+
+    A rolling (sliding-window) cache holds only the window, so its slots
+    need no mask beyond the valid count; a cache indexed by absolute
+    position masks keys at qpos - kpos >= ``window`` (gemma3's local
+    layers), as the full-sequence forward does. enc_kv: the precomputed
+    cross-attention (kx, vx), (B, S_src, KH, hd)."""
+    b = x.shape[0]
+    h = rmsnorm(p["ln1"], x, cfg.rms_eps)
+    q, k, v = qkv_project(p["attn"], h, cfg.n_heads, cfg.n_kv_heads,
+                          cfg.head_dim)
+    pos = cur_len[:, None]  # (B, 1) absolute positions
+    q = apply_rope(q, pos, theta)
+    k = apply_rope(k, pos, theta)
+    s_cache = k_cache.shape[1]
+    rolling = cfg.sliding_window > 0
+    slot = cur_len % s_cache if rolling else cur_len
+    _cache_write(k_cache, v_cache, k, v, slot.long())
+    eff_len = torch.clamp(cur_len + 1, max=s_cache)
+    o = decode_attention(q, k_cache, v_cache, eff_len,
+                         window=-1 if rolling else window, q_pos=cur_len)
+    x = x + o.reshape(b, 1, -1) @ p["attn"]["wo"]
+
+    if enc_kv is not None:
+        kx, vx = enc_kv
+        h = rmsnorm(p["ln_x"], x, cfg.rms_eps)
+        qx = (h @ p["xattn"]["wq"]).reshape(b, 1, cfg.n_heads, cfg.head_dim)
+        ox = decode_attention(qx, kx, vx, torch.full(
+            (b,), kx.shape[1], dtype=torch.int32, device=x.device))
+        x = x + ox.reshape(b, 1, -1) @ p["xattn"]["wo"]
+
+    m, _ = _ffn(p, cfg, rmsnorm(p["ln2"], x, cfg.rms_eps))
+    return x + m
+
+
+# ---------------------------------------------------------------------------
+# Attention pattern (per-layer window / theta)
+# ---------------------------------------------------------------------------
 
 def attention_pattern(cfg: ModelConfig, n_layers: int):
     """Returns (window (L,) int32, theta (L,) float32), one per layer."""

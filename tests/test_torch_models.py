@@ -142,7 +142,8 @@ def test_apply_rope_matches(theta, offset):
 
 
 def test_apply_rope_rejects_3d_positions():
-    with pytest.raises(NotImplementedError, match="A8b"):
+    """3-D positions need M-RoPE sections, as the reference asserts."""
+    with pytest.raises(ValueError, match="mrope sections"):
         layers.apply_rope(torch.zeros(1, 4, 2, 8),
                           torch.zeros(3, 1, 4, dtype=torch.int32))
 
@@ -273,10 +274,10 @@ def test_block_forward_matches(name, layer):
     want, _, _ = jtf.block_forward(jp, jm.cfg, jnp.asarray(x),
                                    jnp.asarray(pos), jw[layer], jth[layer])
     with torch.no_grad():
-        got, aux = tf.block_forward(m.layers[layer], cfg, _t(x), _t(pos),
-                                    int(windows[layer]),
-                                    float(thetas[layer]))
-    assert float(aux) == 0.0
+        got, aux, kv = tf.block_forward(m.layers[layer], cfg, _t(x),
+                                        _t(pos), int(windows[layer]),
+                                        float(thetas[layer]))
+    assert float(aux) == 0.0 and kv is None
     assert_close(_np(got), want, F32_RTOL)
 
 
@@ -442,22 +443,33 @@ def test_converter_carries_bfloat16_exactly():
 
 
 # ---------------------------------------------------------------------------
-# what is not ported yet, and the device
+# what the port has no code for, and the device
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("name", OTHER)
 def test_unported_families_raise(name):
+    """Every family of the registry builds; a family the port has no code
+    for raises, naming it."""
     cfg = configs.reduced_config(configs.get_config(name))
-    with pytest.raises(NotImplementedError, match="A8b"):
-        build_model(cfg, device="cpu")
+    assert build_model(cfg, device="meta").cfg.family == cfg.family
+    with pytest.raises(ValueError, match="unknown family 'rnn'"):
+        build_model(cfg.scaled(family="rnn"), device="cpu")
 
 
 def test_prefill_and_decode_raise():
-    m = Model(configs.reduced_config(configs.get_config("qwen2.5-3b")),
-              device="meta")
-    for fn in (m.prefill, m.decode_step):
-        with pytest.raises(NotImplementedError, match="A8b"):
-            fn({})
+    """prefill and decode_step raise on inputs that do not fit the model:
+    an encoder-decoder's batch without its source frames, a cache of
+    another family."""
+    encdec = Model(configs.reduced_config(
+        configs.get_config("seamless-m4t-large-v2")), device="cpu")
+    with pytest.raises(KeyError, match="src_embeds"):
+        encdec.prefill({"tokens": torch.zeros(1, 4, dtype=torch.int32)})
+    dense = Model(configs.reduced_config(configs.get_config("qwen2.5-3b")),
+                  device="cpu")
+    ssm_cache = Model(configs.reduced_config(
+        configs.get_config("mamba2-130m")), device="cpu").init_cache(1, 8)
+    with pytest.raises(AttributeError):
+        dense.decode_step(ssm_cache, torch.zeros(1, 1, dtype=torch.int32))
 
 
 def test_model_defaults_to_the_card():

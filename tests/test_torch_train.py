@@ -361,9 +361,16 @@ def test_make_loss_fn_rejects_unknown_objective():
 
 @pytest.mark.parametrize("arch", OTHER)
 def test_unported_families_raise_in_training(arch):
+    """A training state is made for every family of the registry (their
+    gradients are held in tests/test_torch_families.py); a family the port
+    has no code for raises before any state is made."""
     cfg = configs.reduced_config(configs.get_config(arch))
-    with pytest.raises(NotImplementedError, match="A8b"):
-        trainer.init_train_state(Model(cfg, device="cpu"),
+    st = trainer.init_train_state(Model(cfg, device="cpu"),
+                                  torch.Generator().manual_seed(0))
+    assert sorted(st.opt.m) == sorted(dict(st.model.named_parameters()))
+    with pytest.raises(ValueError, match="unknown family 'rnn'"):
+        trainer.init_train_state(Model(cfg.scaled(family="rnn"),
+                                       device="cpu"),
                                  torch.Generator().manual_seed(0))
 
 
