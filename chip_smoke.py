@@ -194,6 +194,28 @@ Phases, each printed as it runs; any failed check raises:
      the tokens and the expert routes (MOE_TWIN_RTOL); qwen2-vl's prefill
      from embeddings with 3-D M-RoPE positions. No kernel launches on this
      path: its counts, zeroed before it, are read as 0 after it.
+  15. the entry points and the tools, last: the five twins of the
+     reference's examples (``examples_torch/``) on the card at the
+     reference's sizes, through their ``main`` as a user runs them:
+     quickstart, sparse_selection, serve_risk_api (its spans traced to
+     ``build/chip_smoke/serve_risk_api_trace.jsonl``), serve_batched and
+     train_survival_lm (cut to 20 steps). Each path's counts, zeroed before
+     it and read after it: > 0 exactly for the kernels of EXAMPLE_KERNELS
+     (cox_coord and lipschitz in quickstart; revcumsum too in
+     sparse_selection; survival_curves too in serve_risk_api and
+     train_survival_lm; none in serve_batched). quickstart's final
+     objectives (QUICKSTART_RTOL) and sparse_selection's F1 table (equal)
+     against the same twins run on the CPU in processes of their own
+     beside the card's; every serve_risk_api request scored, and the
+     latency table of its trace with its service.step rows; then, as
+     checks, every kernel at the shapes the examples give it; the dry run
+     of every (arch x shape) cell on the meta device (40: each ``ok`` or
+     skipped with a reason, every train cell's useful/counted flops within
+     USEFUL_RANGE), its dry-run and roofline tables; the autotuner's sweep
+     (the reference's shapes and b = 1, 64 and 4,096 at g = 128, both
+     curve kernels) into ``build/chip_smoke/tuned_blocks.json``, every
+     candidate's panel against the plain version, the tuned-blocks table.
+     Its launches are the kernels line's "example <name>".
 
 Phase 2 also holds revcumsum at the selection path's (262,144, 1,000) and
 (262,144, block) panels and lipschitz at (262,144, 15) against their plain
@@ -202,12 +224,13 @@ revcumsum on the (32,768, 768) and (128, 768) refit panels and at (128,
 256), cox_coord at n = 32,768 and 128, lipschitz at (32,768 or 128,
 1..8) and (32,768 or 128, 768), survival_curves at g = 64 for every
 served bucket b = 1..64. Kernel launch counts are zeroed just before each
-path (phases 3-5, 5b, 11's two services, 7, 9's two calls, 10, 12, 13
-and 14) and read just after it. The line before the last but six is one
-JSON object with phase 11's numbers, then one with the selection path's
-and phase 10's launch counts, then one with phase 12's numbers, then one
-with phase 13's, then one with phase 14's (``{"decode": ...}``), then one
-with every kernel's numbers (its
+path (phases 3-5, 5b, 11's two services, 7, 9's two calls, 10, 12, 13,
+14 and each example of 15) and read just after it. The line before the
+last but seven is one JSON object with phase 11's numbers, then one with
+the selection path's and phase 10's launch counts, then one with phase
+12's numbers, then one with phase 13's, then one with phase 14's
+(``{"decode": ...}``), then one with phase 15's (``{"tools": ...}``),
+then one with every kernel's numbers (its
 ``launches_by_path`` gives every path's count), then the card's name and
 power limit; the last is ``{"ok": true, "device": {...}}``. Without CUDA,
 or without the repository beside it, the script exits nonzero and prints
@@ -235,9 +258,6 @@ STRATA = 8
 # (src/repro/launch/runtime.py), at the main path's width
 STREAM_N, STREAM_CHUNK, STREAM_LAM2 = 4_194_304, 65_536, 0.01
 STREAM_EPOCHS, STREAM_COMPARE_EPOCHS, HOST_CHUNKS = 3, 2, 4
-HBM_BYTES_PER_S = 3.35e12       # H100 SXM, NVIDIA data sheet
-FP32_OPS_PER_S = 67e12          # H100 SXM, non-tensor float32
-BF16_OPS_PER_S = 989e12         # H100 SXM, dense bfloat16 tensor cores
 
 # tolerances, with their reasons
 COORD_TOL = 1e-6     # |kernel - plain| <= COORD_TOL * sum_i |term_i|: float32
@@ -395,6 +415,43 @@ MOE_TWIN_RTOL = 5e-2  # ||bfloat16 - float32|| / ||float32|| of each step's
                       # bfloat16 rounding at 2 layers (the CPU tests:
                       # 0.8-2.5e-2 at 4-6 sublayers against float32)
 DECODE_PROFILE_STEP = 8  # the decode call profiled (earlier calls warm up)
+# phase 15: the five examples' twins (examples_torch/) on the card at the
+# reference's sizes, train_survival_lm cut from 150 steps to 20 (phase 13
+# runs deep.run at its defaults uncut)
+EXAMPLE_ARGS = {"quickstart": (), "sparse_selection": (),
+                "serve_risk_api": (), "serve_batched": (),
+                "train_survival_lm": ("--steps", "20")}
+# the kernels each example's path launches; every other kernel launches 0
+# times there (quickstart runs no beam search, so no revcumsum; the
+# batched decode of serve_batched reaches no kernel of the six)
+EXAMPLE_KERNELS = {
+    "quickstart": ("cox_coord", "lipschitz"),
+    "sparse_selection": ("revcumsum", "cox_coord", "lipschitz"),
+    "serve_risk_api": ("revcumsum", "cox_coord", "lipschitz",
+                       "survival_curves"),
+    "serve_batched": (),
+    "train_survival_lm": ("revcumsum", "cox_coord", "lipschitz",
+                          "survival_curves")}
+# the examples also run on the CPU (their plain versions), beside the card
+CPU_EXAMPLES = ("quickstart", "sparse_selection")
+CPU_EXAMPLE_TIMEOUT = 600
+QUICKSTART_RTOL = 1e-4   # final objectives, card against CPU: float32 fits
+                         # of 60 iterations (the CPU tests see 7e-8 against
+                         # the reference)
+# the shapes the examples give the kernels: the (n, p) of quickstart,
+# sparse_selection and serve_risk_api's data and of train_survival_lm's
+# refit panel (4 held-out batches of 32, its CPU-sized backbone's 128
+# features); finetunes of up to EXAMPLE_K columns; serve_risk_api's grid
+# and buckets (max_batch 32); train_survival_lm's grid of 64 and buckets
+# up to 16 are phase 2's DEEP_GRID and DEEP_CURVE_BS
+EXAMPLE_FITS = ((1_000, 100), (600, 120), (400, 120), (128, 128))
+EXAMPLE_K = 8
+EXAMPLE_GRID = 128
+EXAMPLE_CURVE_BS = (1, 2, 4, 8, 16, 32)
+TOOLS_DIR = ROOT / "build" / "chip_smoke"
+DRYRUN_CELLS = 40
+USEFUL_RANGE = (0.3, 1.5)  # model flops over counted flops, a train cell
+AUTOTUNE_BS = (1, 64, 4_096)   # beside the reference's sweep (256, 1,024)
 
 # the TPU kernel each CUDA kernel replaces (its pallas_call), and the path
 # whose launch count the kernels line reports
@@ -628,9 +685,11 @@ def check_curve(name: str, fn, want) -> float:
 
 
 def check_kernels(coord_ns=None, curve_bs=CURVE_BS,
-                  curve_gs=CURVE_GS, deep_curve_bs=DEEP_CURVE_BS) -> dict:
-    """Every kernel against its plain version on the card; returns the
-    largest absolute error of each."""
+                  curve_gs=CURVE_GS, deep_curve_bs=DEEP_CURVE_BS,
+                  launch_shape=True) -> dict:
+    """Every kernel against its plain version on the card, then, with
+    ``launch_shape``, one call's launch shape of cox_coord and
+    survival_curves; returns the largest absolute error of each."""
     import torch
 
     from repro_torch.kernels import ops, ref
@@ -685,14 +744,15 @@ def check_kernels(coord_ns=None, curve_bs=CURVE_BS,
             check(torch.equal(got, cox_coord(eta, x, d, rs, order=3,
                                              group_events=groups)),
                   f"cox_coord n={n} ties={ties}: made group_events differ")
-    eta, x = randn(N) * 0.8, randn(N)
-    d = (torch.rand(N, device="cuda", generator=gen) < 0.7).float()
-    rs = _risk_start(N, "quarter", gen)
-    groups = ops.group_events(d, rs)
-    check_launch_shape(
-        f"cox_coord n={N}",
-        lambda: cox_coord(eta, x, d, rs, group_events=groups),
-        coord_mod.KERNELS_PER_CALL, "coord_")
+    if launch_shape:
+        eta, x = randn(N) * 0.8, randn(N)
+        d = (torch.rand(N, device="cuda", generator=gen) < 0.7).float()
+        rs = _risk_start(N, "quarter", gen)
+        groups = ops.group_events(d, rs)
+        check_launch_shape(
+            f"cox_coord n={N}",
+            lambda: cox_coord(eta, x, d, rs, group_events=groups),
+            coord_mod.KERNELS_PER_CALL, "coord_")
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     shapes = [(b, g) for b in curve_bs for g in curve_gs]
@@ -716,10 +776,11 @@ def check_kernels(coord_ns=None, curve_bs=CURVE_BS,
                       lambda: survival_curves(eta, h0),
                       ref.survival_curves_ref(eta, h0))
     errs["survival_curves"] = max(errs["survival_curves"], err)
-    h0 = h0.clone()
-    check_launch_shape("survival_curves b=4096 g=128",
-                       lambda: survival_curves(eta, h0),
-                       curves_mod.KERNELS_PER_CALL, "curves_panel")
+    if launch_shape:
+        h0 = h0.clone()
+        check_launch_shape("survival_curves b=4096 g=128",
+                           lambda: survival_curves(eta, h0),
+                           curves_mod.KERNELS_PER_CALL, "curves_panel")
     return errs
 
 
@@ -1903,6 +1964,7 @@ def dense_backbone() -> dict:
     forward against a float32 forward of the same weights, on the card."""
     import torch
 
+    from repro_torch.analysis import roofline as rl
     from repro_torch.data.pipeline import SurvivalTextStream
     from repro_torch.survival import deep
 
@@ -1938,10 +2000,10 @@ def dense_backbone() -> dict:
         f"({out['tokens_per_s']:.0f} "
         f"tokens/s; weight GEMMs {out['gemm_tflop_per_batch']:.2f} TFLOP a "
         f"batch, {out['gemm_tflops']:.1f} TFLOP/s = "
-        f"{out['gemm_tflops'] * 1e12 / BF16_OPS_PER_S:.1%} of the bfloat16 "
+        f"{out['gemm_tflops'] * 1e12 / rl.BF16_OPS_PER_S:.1%} of the bfloat16 "
         f"peak), float32 {out['s_per_batch_float32']:.4f} s "
         f"({out['gemm_tflops_float32']:.1f} TFLOP/s = "
-        f"{out['gemm_tflops_float32'] * 1e12 / FP32_OPS_PER_S:.1%} of the "
+        f"{out['gemm_tflops_float32'] * 1e12 / rl.FP32_OPS_PER_S:.1%} of the "
         f"float32 peak); pooled "
         f"features against the float32 forward: ||diff|| / ||f32|| "
         f"{err:.3e} (tol {DENSE_BF16_RTOL:.0e}), max |diff| / max |f32| "
@@ -2355,6 +2417,7 @@ def _launcher_check() -> dict:
     import numpy as np
     import torch
 
+    from repro_torch.analysis import roofline as rl
     from repro_torch.data.pipeline import TokenTaskStream
     from repro_torch.launch import train as train_cli
     from repro_torch.configs import TrainConfig
@@ -2404,7 +2467,7 @@ def _launcher_check() -> dict:
         f"{out['gemm_tflops_device']:.1f} TFLOP/s over the matmul kernels' "
         f"device time ({prof['gemm_ms']:.2f} ms of the profiled step, "
         f"all matmuls; "
-        f"{out['gemm_tflops_device'] * 1e12 / BF16_OPS_PER_S:.1%} of the "
+        f"{out['gemm_tflops_device'] * 1e12 / rl.BF16_OPS_PER_S:.1%} of the "
         f"bfloat16 peak); loss "
         f"{losses[0]:.4f} -> {losses[-1]:.4f}; one profiled step: wall "
         f"{prof['wall_ms']:.2f} ms, idle {prof['idle']:.1%}, "
@@ -3096,6 +3159,255 @@ def decode_phase() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 15: the entry points and the tools
+# ---------------------------------------------------------------------------
+
+def _example(name: str):
+    """``examples_torch/<name>.py`` as a module (its ``main`` not run)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        f"examples_torch_{name}", ROOT / "examples_torch" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _cpu_examples() -> dict:
+    """The CPU twins of CPU_EXAMPLES, each started in a process of its own
+    with one intra-op thread, to run beside the card's."""
+    import os
+
+    env = {**os.environ, "PYTHONPATH": str(SRC), "OMP_NUM_THREADS": "1"}
+    return {name: subprocess.Popen(
+        [sys.executable, str(ROOT / "examples_torch" / f"{name}.py"),
+         "--device", "cpu"], cwd=str(TOOLS_DIR), env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for name in CPU_EXAMPLES}
+
+
+def _cpu_output(proc) -> str:
+    out, err = proc.communicate(timeout=CPU_EXAMPLE_TIMEOUT)
+    check(proc.returncode == 0, f"a CPU example exited {proc.returncode}: "
+          f"{err[-2000:]}")
+    return out
+
+
+def _against_cpu(card: dict, procs: dict) -> dict:
+    """quickstart's final objectives and sparse_selection's F1 table on the
+    card against the same examples on the CPU."""
+    import re
+
+    cpu = {name: _cpu_output(proc) for name, proc in procs.items()}
+    objs = {m: float(v) for m, v in re.findall(
+        r"^\s*(\w+): final objective ([-\d.]+)", cpu["quickstart"],
+        re.M)}
+    check(sorted(objs) == sorted(_example("quickstart").METHODS),
+          f"the CPU quickstart printed {sorted(objs)}")
+    rel = {m: abs(card["quickstart"][m] - o) / abs(o)
+           for m, o in objs.items()}
+    log("  quickstart, card against CPU, final objectives: "
+        + ", ".join(f"{m} {card['quickstart'][m]:.6f} / {objs[m]:.6f} "
+                    f"(rel {rel[m]:.2e})" for m in objs)
+        + f"; tol {QUICKSTART_RTOL:.0e}")
+    check(max(rel.values()) <= QUICKSTART_RTOL,
+          f"quickstart: card and CPU objectives differ by {rel}")
+    rows = re.findall(r"^\s*(\d+) \| +([\d.]+) \| +([\d.]+) \| +([\d.]+)$",
+                      cpu["sparse_selection"], re.M)
+    mine = [(str(k), f"{b:.3f}", f"{o:.3f}", f"{f:.3f}")
+            for k, b, o, f in card["sparse_selection"]]
+    log(f"  sparse_selection F1 table, card {mine}, CPU {rows}")
+    check(len(rows) == 8 and mine == rows,
+          "sparse_selection: the card's F1 table is not the CPU's")
+    return {"quickstart_rel": rel, "f1_rows": [list(r) for r in mine]}
+
+
+def _latency_rows(table: str) -> dict:
+    """{stage: count} of a latency-breakdown table."""
+    rows = [r.split("|")[1:3] for r in table.splitlines()[2:]]
+    return {name.strip(): int(n) for name, n in rows if n.strip().isdigit()}
+
+
+def check_example_kernels() -> dict:
+    """Every kernel of the examples' paths against its plain version at the
+    shapes they give it: cox_coord and lipschitz on each example's data
+    and on train_survival_lm's refit panel, revcumsum on their scored
+    column blocks, survival_curves on serve_risk_api's buckets (phase 2
+    has checked the launch shapes and train_survival_lm's buckets).
+    Returns the largest absolute error of each."""
+    import torch
+
+    from repro_torch.core import beam
+
+    errs = check_kernels(coord_ns=tuple(n for n, _ in EXAMPLE_FITS),
+                         curve_bs=EXAMPLE_CURVE_BS,
+                         curve_gs=(EXAMPLE_GRID,),
+                         deep_curve_bs=(), launch_shape=False)
+    errs["lipschitz"] = max(check_lipschitz(
+        ns=(n,), ps=tuple(range(1, EXAMPLE_K + 1)) + (p,),
+        launch_shape=False) for n, p in EXAMPLE_FITS)
+    shapes = []
+    for n, p in EXAMPLE_FITS:
+        shapes += [(n, c.stop - c.start) for c in beam.column_blocks(n, p, 4)]
+    errs["revcumsum"] = check_selection_scans(tuple(sorted(set(shapes))))
+    torch.cuda.empty_cache()
+    return errs
+
+
+def _dryrun(out_dir: Path) -> dict:
+    """Every (arch x shape) cell on the meta device; the tables printed."""
+    import shutil
+
+    from repro_torch.analysis import report
+    from repro_torch.configs import REGISTRY, SHAPES
+    from repro_torch.launch import dryrun
+
+    shutil.rmtree(out_dir, ignore_errors=True)
+    t0 = time.perf_counter()
+    recs = dryrun.main(["--out", str(out_dir)])
+    seconds = time.perf_counter() - t0
+    check(len(recs) == len(REGISTRY) * len(SHAPES) == DRYRUN_CELLS,
+          f"the dry run gave {len(recs)} cells")
+    for r in recs:
+        check(r["status"] == "ok" or (r["status"] == "skipped"
+                                      and r.get("reason")),
+              f"dry run {r['arch']} {r['shape']}: {r['status']} "
+              f"{r.get('traceback', '')}")
+    useful = {r["arch"]: r["roofline"]["useful_flops_ratio"] for r in recs
+              if r["status"] == "ok" and SHAPES[r["shape"]].kind == "train"}
+    log("  train cells' useful/counted flops: "
+        + ", ".join(f"{a} {u:.3f}" for a, u in useful.items())
+        + f" (within {USEFUL_RANGE})")
+    check(len(useful) == len(REGISTRY) and all(
+        USEFUL_RANGE[0] <= u <= USEFUL_RANGE[1] for u in useful.values()),
+        f"useful flops ratios {useful} outside {USEFUL_RANGE}")
+    recs = report.load(str(out_dir))
+    log(report.dryrun_table(recs))
+    log(report.roofline_table(recs))
+    log(f"  dry run: {len(recs)} cells in {seconds:.1f} s")
+    cells = {f"{r['arch']} {r['shape']}": (
+        {"fits": r["fits"], "state_gb": r["bytes"]["state"] / 1e9,
+         "flops": r["flops"], "bottleneck": r["roofline"]["bottleneck"],
+         "compute_s": r["roofline"]["compute_s"],
+         "memory_floor_s": r["roofline"]["memory_s"],
+         "useful": r["roofline"]["useful_flops_ratio"]}
+        if r["status"] == "ok" else {"skipped": r["reason"]})
+        for r in recs}
+    return {"seconds": seconds, "train_useful": useful, "cells": cells,
+            "card_bytes": recs[0].get("card_bytes") if recs else None}
+
+
+def _autotune(cache: Path) -> dict:
+    """The autotuner's sweep into ``cache``, every candidate's panel
+    checked against the plain version at each swept shape."""
+    from repro_torch.analysis import report
+    from repro_torch.kernels import autotune, ref
+
+    cache.unlink(missing_ok=True)
+    shapes = list(autotune.DEFAULT_SWEEP) + [
+        (kernel, {"b": b, "g": EXAMPLE_GRID})
+        for kernel in sorted(autotune.DEFAULT_CONFIGS)
+        for b in AUTOTUNE_BS]
+    t0 = time.perf_counter()
+    autotune.sweep(shapes, cache_file=str(cache), force=True, verbose=True)
+    seconds = time.perf_counter() - t0
+    worst = 0.0
+    for kernel, shape in shapes:
+        inputs = autotune._build_inputs(kernel, shape, seed=5,
+                                        device="cuda")
+        want = (ref.survival_curves_ref(*inputs)
+                if kernel == "survival_curves"
+                else ref.survival_curves_stratified_ref(*inputs))
+        for cfg in autotune.CANDIDATES[kernel]:
+            worst = max(worst, check_curve(
+                f"{kernel} b={shape['b']} g={shape['g']} {cfg}",
+                lambda cfg=cfg: autotune.run_config(kernel, inputs, cfg),
+                want))
+    log(report.tuned_blocks_table(str(cache)))
+    entries = autotune.load_cache(str(cache), refresh=True)
+    return {"seconds": seconds, "max_abs_err": worst, "entries": {
+        key: {k: e[k] for k in ("config", "us", "spread_us", "default_us",
+                                "default_spread_us", "candidates",
+                                "candidate_spread_us", "device")}
+        for key, e in entries.items()}}
+
+
+def tools_phase() -> dict:
+    """Phase 15: the five examples on the card as a user runs them, each
+    path's launch counts read, quickstart and sparse_selection held
+    against their CPU runs, the latency table of serve_risk_api's trace,
+    the kernels at the examples' shapes, the whole dry run and the
+    autotuner's sweep."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from repro_torch.analysis import report
+    from repro_torch.kernels import ops
+
+    log("phase 15: the entry points and the tools")
+    t0 = time.perf_counter()
+    TOOLS_DIR.mkdir(parents=True, exist_ok=True)
+    trace_path = TOOLS_DIR / "serve_risk_api_trace.jsonl"
+    trace_path.unlink(missing_ok=True)
+    procs = _cpu_examples()
+    try:
+        results, examples, launches = {}, {}, {}
+        for name, args in EXAMPLE_ARGS.items():
+            if name == "serve_risk_api":
+                os.environ["REPRO_TRACE_FILE"] = str(trace_path)
+            ops.reset_launch_counts()
+            t1 = time.perf_counter()
+            try:
+                results[name] = _example(name).main(["--device", "cuda",
+                                                     *args])
+            finally:
+                os.environ.pop("REPRO_TRACE_FILE", None)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t1
+            counts = ops.launch_counts()
+            log(f"  example {name}: {seconds:.2f} s, launches {counts}")
+            want = EXAMPLE_KERNELS[name]
+            check(all((counts[k] > 0) == (k in want) for k in counts),
+                  f"example {name}: launches {counts}, expected > 0 exactly "
+                  f"for {want}")
+            examples[name] = {"seconds": seconds, "launches": counts}
+            launches[f"example {name}"] = counts
+        versus = _against_cpu(results, procs)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+    resps = results["serve_risk_api"]
+    check(len(resps) == 120 and all(r.ok for r in resps),
+          "serve_risk_api: not every request scored")
+    table = report.latency_breakdown_table(str(trace_path))
+    log(table)
+    stages = _latency_rows(table)
+    check(stages.get("service.step", 0) >= 1
+          and stages.get("service.request") == 120,
+          f"serve_risk_api's latency table: {stages}")
+    reqs = results["serve_batched"]
+    check(len(reqs) == 8 and all(len(r.out) == 12 for r in reqs),
+          "serve_batched: not 8 requests of 12 tokens")
+    res = results["train_survival_lm"]
+    check(len(res.losses) == 20 and bool(np.all(np.isfinite(res.losses))),
+          "train_survival_lm: the losses")
+
+    errs = check_example_kernels()
+    dry = _dryrun(TOOLS_DIR / "dryrun")
+    tuned = _autotune(TOOLS_DIR / "tuned_blocks.json")
+    torch.cuda.empty_cache()
+    return {"examples": examples, "launches": launches,
+            "against_cpu": versus, "latency_stages": stages,
+            "errs": errs, "dryrun": dry, "autotune": tuned,
+            "seconds": time.perf_counter() - t0}
+
+
+# ---------------------------------------------------------------------------
 # Phase 7: the streaming fit
 # ---------------------------------------------------------------------------
 
@@ -3280,7 +3592,11 @@ def streaming_phase() -> dict:
 # ---------------------------------------------------------------------------
 
 def _bound(nbytes: float, ops: float):
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+    """(ms, what bounds it): the bytes at the H100's memory rate or the
+    float32 operations at its peak outside the tensor cores, the larger."""
+    from repro_torch.analysis import roofline as rl
+
+    t_bytes, t_ops = nbytes / rl.HBM_BYTES_PER_S, ops / rl.FP32_OPS_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -3876,6 +4192,12 @@ def main() -> int:
     decode_out = decode_phase()
     log(f"  phase 14 took {decode_out['seconds']:.1f} s")
     launches["decode"] = decode_out["launches"]
+
+    tools_out = tools_phase()
+    log(f"  phase 15 took {tools_out['seconds']:.1f} s")
+    launches.update(tools_out.pop("launches"))
+    for name, err in tools_out.pop("errs").items():
+        errs[name] = max(errs[name], err)
     log(f"  total {time.perf_counter() - t_start:.1f} s")
 
     kernels = []
@@ -3909,6 +4231,7 @@ def main() -> int:
     print(json.dumps({"deep": deep_out}))
     print(json.dumps({"train": train_out}))
     print(json.dumps({"decode": decode_out}))
+    print(json.dumps({"tools": tools_out}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -14,11 +14,11 @@ does not fit the shape.
 from __future__ import annotations
 
 import functools
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
-from . import _build, ref
+from . import _build, autotune, ref
 
 Tensor = torch.Tensor
 
@@ -32,7 +32,9 @@ SLAB_MAX = 32                   # rows of one eta load, lane i row i (kSlabMax)
 # (kStagedStrata); a larger one is read through the read-only path
 STAGED_STRATA = 8
 # blocks an SM the plan fills before a warp takes more rows (of 1, 2, 4
-# and 8, the fastest at b = 4,096 on an H100: scripts/ab_curves.py)
+# and 8, the fastest at b = 4,096 on an H100: scripts/ab_curves.py); the
+# default of kernels/autotune.py, whose cache may hold another value for
+# a shape bucket
 BLOCKS_PER_SM = 2
 
 
@@ -77,12 +79,21 @@ def _sms(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def survival_curves(eta: Tensor, h0: Tensor) -> Tensor:
+def _blocks_per_sm(kernel: str, b: int, g: int, given) -> int:
+    """``given``, else the autotuner's winner for the bucket of (b, g),
+    else BLOCKS_PER_SM."""
+    return given or autotune.knob(kernel, b, g)
+
+
+def survival_curves(eta: Tensor, h0: Tensor,
+                    blocks_per_sm: Optional[int] = None) -> Tensor:
     """(b, g) S = exp(-h0[g] * exp(clip(eta[b], -30, 30))).
 
     eta: (b,) linear predictors; h0: (g,) cumulative baseline hazard, both
     float32 on a card, where the call is one kernel launch and nothing
-    else. On the CPU the plain version runs."""
+    else; its plan fills ``blocks_per_sm`` blocks an SM (None: the tuned
+    value of ``kernels/autotune.py``'s cache, else BLOCKS_PER_SM). On the
+    CPU the plain version runs."""
     if eta.dim() != 1 or h0.dim() != 1:
         raise ValueError(f"survival_curves: eta and h0 must be vectors, got "
                          f"{tuple(eta.shape)} and {tuple(h0.shape)}")
@@ -96,7 +107,9 @@ def survival_curves(eta: Tensor, h0: Tensor) -> Tensor:
     out = torch.empty((b, g), dtype=torch.float32, device=eta.device)
     if b == 0 or g == 0:
         return out
-    pl = plan(b, g, _sms(eta.device), aligned=h0.data_ptr() % 16 == 0)
+    pl = plan(b, g, _sms(eta.device), aligned=h0.data_ptr() % 16 == 0,
+              blocks_per_sm=_blocks_per_sm("survival_curves", b, g,
+                                           blocks_per_sm))
     lib = _build.library()
     _build.check(lib.repro_survival_curves(
         eta.data_ptr(), h0.data_ptr(), b, g, pl.blocks, pl.slab, pl.vec,
@@ -105,15 +118,18 @@ def survival_curves(eta: Tensor, h0: Tensor) -> Tensor:
     return out
 
 
-def survival_curves_stratified(eta: Tensor, h0: Tensor,
-                               strata: Tensor) -> Tensor:
+def survival_curves_stratified(eta: Tensor, h0: Tensor, strata: Tensor,
+                               blocks_per_sm: Optional[int] = None
+                               ) -> Tensor:
     """(b, g) S = exp(-h0[strata[b], g] * exp(clip(eta[b], -30, 30))).
 
     eta: (b,) linear predictors; h0: (s, g) cumulative baseline hazard per
     stratum; strata: (b,) row indices into h0. On a card eta and h0 are
     float32 and strata int32, strata must lie in [0, s) (the kernel does
     not check them on the device), and the call is one kernel launch and
-    nothing else. On the CPU the plain version runs."""
+    nothing else; ``blocks_per_sm`` as ``survival_curves`` reads it (the
+    autotuner's ``survival_curves_strat``). On the CPU the plain version
+    runs."""
     if eta.dim() != 1 or h0.dim() != 2:
         raise ValueError(f"survival_curves_stratified: eta must be a vector "
                          f"and h0 an (s, g) table, got {tuple(eta.shape)} "
@@ -130,7 +146,9 @@ def survival_curves_stratified(eta: Tensor, h0: Tensor,
     if b == 0 or g == 0:
         return out
     pl = plan(b, g, _sms(eta.device), s, stratified=True,
-              aligned=h0.data_ptr() % 16 == 0)
+              aligned=h0.data_ptr() % 16 == 0,
+              blocks_per_sm=_blocks_per_sm("survival_curves_strat", b, g,
+                                           blocks_per_sm))
     lib = _build.library()
     _build.check(lib.repro_survival_curves_stratified(
         eta.data_ptr(), h0.data_ptr(), strata.data_ptr(), b, g, s, pl.blocks,

@@ -35,6 +35,7 @@ Tensor = torch.Tensor
 FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid", "encdec")
 DECODERS = ("dense", "moe", "vlm")
 CONV_TAIL = 3   # mamba2's conv_width - 1 pre-conv inputs a cache carries
+_META = torch.device("meta")
 
 
 class SSMCache(NamedTuple):
@@ -329,7 +330,10 @@ class Model(nn.Module):
         to ``max_len`` positions (a sliding-window cache holds at most the
         window) and, for an encoder-decoder, ``src_len`` source frames
         (``max_len`` when 0): the reference's ``init_cache_specs`` shapes."""
-        cfg, dt, dev = self.cfg, self.dt, self.device
+        return self._cache(batch, max_len, src_len or max_len, self.device)
+
+    def _cache(self, batch: int, max_len: int, src_len: int, dev):
+        cfg, dt = self.cfg, self.dt
         if cfg.family in DECODERS:
             return tf.init_kv_cache(cfg, cfg.n_layers, batch, max_len, dt,
                                     dev)
@@ -337,25 +341,78 @@ class Model(nn.Module):
         kv = (batch, tf.cache_slots(cfg, max_len), cfg.n_kv_heads,
               cfg.head_dim)
         if cfg.family == "encdec":
-            xkv = (cfg.n_layers, batch, src_len or max_len, cfg.n_kv_heads,
+            xkv = (cfg.n_layers, batch, src_len, cfg.n_kv_heads,
                    cfg.head_dim)
             return EncDecCache(
                 *(torch.zeros((cfg.n_layers,) + kv, dtype=dt, device=dev)
                   for _ in range(2)),
                 *(torch.zeros(xkv, dtype=dt, device=dev) for _ in range(2)),
                 length)
-        d_inner = cfg.ssm_expand * cfg.d_model
-        conv = torch.zeros(cfg.n_layers, batch, CONV_TAIL,
-                           d_inner + 2 * cfg.ssm_state, dtype=dt, device=dev)
-        state = torch.zeros(cfg.n_layers, batch, d_inner // cfg.ssm_head_dim,
-                            cfg.ssm_head_dim, cfg.ssm_state,
-                            dtype=torch.float32, device=dev)
+        conv, state = self._conv_spec(batch), self._state_spec(batch)
+        conv = torch.zeros(conv.shape, dtype=conv.dtype, device=dev)
+        state = torch.zeros(state.shape, dtype=state.dtype, device=dev)
         if cfg.family == "ssm":
             return SSMCache(conv, state, length)
         g = cfg.n_layers // cfg.shared_attn_every
         return HybridCache(conv, state, *(
             torch.zeros((g,) + kv, dtype=dt, device=dev) for _ in range(2)),
             length)
+
+    # ------------------------------------------------------------------
+    # Cache + input specs (for the dry run): tensors on the meta device,
+    # shapes and dtypes without storage
+    # ------------------------------------------------------------------
+    def init_cache_specs(self, batch: int, max_len: int):
+        """The decode cache of ``init_cache(batch, max_len)`` on the meta
+        device: the reference's ``init_cache_specs`` shapes and dtypes (an
+        encoder-decoder's source as long as ``max_len``)."""
+        return self._cache(batch, max_len, self._src_len(max_len), _META)
+
+    def _conv_spec(self, batch: int) -> Tensor:
+        cfg = self.cfg
+        d_inner = cfg.ssm_expand * cfg.d_model
+        return torch.empty(cfg.n_layers, batch, CONV_TAIL,
+                           d_inner + 2 * cfg.ssm_state, dtype=self.dt,
+                           device=_META)
+
+    def _state_spec(self, batch: int) -> Tensor:
+        """The SSM state, float32 whatever the model's dtype."""
+        cfg = self.cfg
+        d_inner = cfg.ssm_expand * cfg.d_model
+        return torch.empty(cfg.n_layers, batch, d_inner // cfg.ssm_head_dim,
+                           cfg.ssm_head_dim, cfg.ssm_state,
+                           dtype=torch.float32, device=_META)
+
+    @staticmethod
+    def _src_len(tgt_len: int) -> int:
+        return tgt_len  # encdec shapes: source frames match target length
+
+    def make_input_specs(self, shape) -> Dict[str, Tensor]:
+        """A batch of meta tensors for a ``ShapeSpec`` cell (no storage):
+        tokens (B, 1) for decode; else tokens, or the stub frontend's
+        embeds (B, S, D) (and (3, B, S) M-RoPE positions), or an
+        encoder-decoder's source frames and tokens; labels for train."""
+        cfg, dt = self.cfg, self.dt
+        b, s = shape.global_batch, shape.seq_len
+
+        def spec(*dims, dtype=torch.int32):
+            return torch.empty(dims, dtype=dtype, device=_META)
+
+        if shape.kind == "decode":
+            return {"tokens": spec(b, 1)}
+        batch: Dict[str, Tensor] = {}
+        if cfg.family == "encdec":
+            batch["src_embeds"] = spec(b, s, cfg.d_model, dtype=dt)
+            batch["tokens"] = spec(b, s)
+        elif cfg.frontend in ("audio", "vision"):
+            batch["embeds"] = spec(b, s, cfg.d_model, dtype=dt)
+            if cfg.mrope_sections:
+                batch["positions"] = spec(3, b, s)
+        else:
+            batch["tokens"] = spec(b, s)
+        if shape.kind == "train":
+            batch["labels"] = spec(b, s)
+        return batch
 
     @torch.no_grad()
     def prefill(self, batch: Dict[str, Tensor], max_len: int = 0):

@@ -1,5 +1,6 @@
 """The port stands alone: it imports neither JAX nor the JAX package, and
-its sources and chip_smoke.py say so."""
+its sources, its examples (``examples_torch/``) and chip_smoke.py say
+so."""
 import json
 import os
 import pathlib
@@ -13,6 +14,7 @@ pytest.importorskip("torch")
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = ROOT / "src" / "repro_torch"
+EXAMPLES = ROOT / "examples_torch"
 FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|repro)\b", re.M)
 
 
@@ -41,8 +43,9 @@ def test_importing_every_module_pulls_in_no_jax():
     assert json.loads(res.stdout.strip().splitlines()[-1]) == []
 
 
-@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) + [
-    ROOT / "chip_smoke.py"], ids=lambda p: str(p.relative_to(ROOT)))
+@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) + sorted(
+    EXAMPLES.glob("*.py")) + [ROOT / "chip_smoke.py"],
+    ids=lambda p: str(p.relative_to(ROOT)))
 def test_sources_import_no_jax_or_reference(path):
     assert path.exists(), path
     bad = FORBIDDEN.findall(path.read_text())
@@ -71,6 +74,27 @@ def test_serving_front_end_imports_no_jax_or_reference(rel):
             f"importlib.import_module({module!r})\n"
             "print(json.dumps(sorted(m for m in sys.modules\n"
             "    if m in ('jax', 'repro') or m.startswith(('jax.', 'repro.')))))\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert json.loads(res.stdout.strip().splitlines()[-1]) == []
+
+
+def test_importing_every_example_pulls_in_no_jax():
+    """Each example twin, imported alone (its ``main`` not run), pulls in
+    neither JAX nor the JAX package."""
+    names = sorted(p.stem for p in EXAMPLES.glob("*.py"))
+    assert names == ["quickstart", "serve_batched", "serve_risk_api",
+                     "sparse_selection", "train_survival_lm"]
+    code = (
+        "import importlib.util, json, sys\n"
+        f"for n in {names!r}:\n"
+        f"    spec = importlib.util.spec_from_file_location(\n"
+        f"        n, {str(EXAMPLES)!r} + '/' + n + '.py')\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        "print(json.dumps(sorted(m for m in sys.modules\n"
+        "    if m in ('jax', 'repro') or m.startswith(('jax.', 'repro.')))))\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
                          capture_output=True, text=True, timeout=120)
