@@ -216,6 +216,21 @@ Phases, each printed as it runs; any failed check raises:
      curve kernels) into ``build/chip_smoke/tuned_blocks.json``, every
      candidate's panel against the plain version, the tuned-blocks table.
      Its launches are the kernels line's "example <name>".
+  16. the (data, model) mesh, last: (a) a (1, 1) ``DeviceMesh`` over a
+     one-rank NCCL world, the launcher's qwen2.5-3b at its published
+     widths (12 layers, vocab 4,096, bfloat16, 8 x 64) with every
+     parameter and AdamW moment a DTensor (``launch.sharding.shard_model``
+     in train mode), one ``trainer.make_train_step`` step against the plain
+     step from the same weights (the loss within MESH_LOSS_RTOL, every
+     parameter within two steps' moves and a bfloat16 rounding), then
+     seconds a step of both, in turns, so the DTensor dispatch cost is
+     written down; (b) the mesh dry run
+     (``python -m repro_torch.launch.dryrun --mesh single``: the 40 cells
+     on the 16 x 16 mesh, fake worlds of 256 ranks on meta, in four
+     processes started when the phase starts, the card hidden from them):
+     every cell ``ok`` or skipped with the reference's reason, each one's
+     per-device GB, fits, collective bytes and bottleneck printed.
+     No kernel launches on this path: its counts are read as 0.
 
 Phase 2 also holds revcumsum at the selection path's (262,144, 1,000) and
 (262,144, block) panels and lipschitz at (262,144, 15) against their plain
@@ -225,12 +240,13 @@ revcumsum on the (32,768, 768) and (128, 768) refit panels and at (128,
 1..8) and (32,768 or 128, 768), survival_curves at g = 64 for every
 served bucket b = 1..64. Kernel launch counts are zeroed just before each
 path (phases 3-5, 5b, 11's two services, 7, 9's two calls, 10, 12, 13,
-14 and each example of 15) and read just after it. The line before the
-last but seven is one JSON object with phase 11's numbers, then one with
+14, each example of 15 and 16) and read just after it. The line before
+the last but eight is one JSON object with phase 11's numbers, then one with
 the selection path's and phase 10's launch counts, then one with phase
 12's numbers, then one with phase 13's, then one with phase 14's
 (``{"decode": ...}``), then one with phase 15's (``{"tools": ...}``),
-then one with every kernel's numbers (its
+then one with phase 16's (``{"mesh": ...}``), then one with every
+kernel's numbers (its
 ``launches_by_path`` gives every path's count), then the card's name and
 power limit; the last is ``{"ok": true, "device": {...}}``. Without CUDA,
 or without the repository beside it, the script exits nonzero and prints
@@ -455,6 +471,29 @@ AUTOTUNE_BS = (1, 64, 4_096)   # beside the reference's sweep (256, 1,024)
 
 # the TPU kernel each CUDA kernel replaces (its pallas_call), and the path
 # whose launch count the kernels line reports
+# phase 16: the (data, model) mesh. (a) the sharded train step on a (1, 1)
+# mesh over a one-rank NCCL world at the launcher's widths (qwen2.5-3b, 12
+# layers, vocab 4,096, bfloat16, batch 8 x 64): every parameter and moment
+# a DTensor, one step from the same state as the plain step, then timed
+# steps of each, in turns; (b) beside it, the mesh dry run of every cell
+# on the 16 x 16 mesh in four processes (each a fake world of 256 ranks on
+# meta), started when the phase starts so that they slow no earlier phase
+MESH_TIMED_STEPS = 5
+MESH_LOSS_RTOL = 2e-5    # the sharded step's loss against the plain step's
+                         # from the same state: float32 loss, the vocab-
+                         # parallel logsumexp (max, sum of exponentials,
+                         # masked label logit) against torch.logsumexp and
+                         # gather, a few ulps
+# the parameters after that step: within 2 lr (AdamW's first move is
+# +-lr, whose sign a gradient at round-off level can flip) and one
+# bfloat16 ulp, |p| 2^-7 (the two float32 updates can round to neighbours)
+MESH_DRYRUN_CELLS = 40
+MESH_DRYRUN_TIMEOUT = 400
+MESH_DRYRUN_GROUPS = (("deepseek-67b", "qwen2.5-3b", "mamba2-130m"),
+                      ("mixtral-8x22b", "gemma3-12b"),
+                      ("mixtral-8x7b", "zamba2-2.7b", "qwen1.5-4b"),
+                      ("seamless-m4t-large-v2", "qwen2-vl-7b"))
+MESH_DIR = ROOT / "build" / "chip_smoke" / "dryrun_mesh"
 REPLACES = {
     "cox_coord": "src/repro/kernels/cox_coord.py:101",
     "lipschitz": "src/repro/kernels/lipschitz.py:78",
@@ -3408,6 +3447,202 @@ def tools_phase() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 16: the (data, model) mesh
+# ---------------------------------------------------------------------------
+
+def start_mesh_dryrun():
+    """The mesh dry run of every cell on the 16 x 16 mesh, in one process
+    for each group of MESH_DRYRUN_GROUPS (each makes a fake world of 256
+    ranks), with the card hidden: ``fits`` then reads against the data
+    sheet's 80 GB. Their output goes to ``MESH_DIR``."""
+    import os
+    import shutil
+
+    shutil.rmtree(MESH_DIR, ignore_errors=True)
+    MESH_DIR.mkdir(parents=True)
+    env = {**os.environ, "PYTHONPATH": str(SRC), "OMP_NUM_THREADS": "1",
+           "CUDA_VISIBLE_DEVICES": ""}
+    procs = []
+    for i, archs in enumerate(MESH_DRYRUN_GROUPS):
+        with open(MESH_DIR / f"log{i}.txt", "w") as log_file:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun", "--mesh",
+                 "single", "--arch", ",".join(archs), "--out",
+                 str(MESH_DIR / "records")], cwd=str(ROOT), env=env,
+                stdout=log_file, stderr=subprocess.STDOUT))
+    return procs, time.time()
+
+
+def _mesh_dryrun(procs, started: float) -> dict:
+    """Phase 16 (b): wait for the mesh dry run, check every cell and print
+    each one's per-device GB, fits, collective bytes and bottleneck."""
+    from repro_torch.analysis import report
+    from repro_torch.configs import REGISTRY, SHAPES
+
+    for i, proc in enumerate(procs):
+        rc = proc.wait(timeout=max(1.0, MESH_DRYRUN_TIMEOUT
+                                   - (time.time() - started)))
+        tail = (MESH_DIR / f"log{i}.txt").read_text()[-3000:]
+        check(rc == 0, f"the mesh dry run exited {rc}: {tail}")
+    # its own seconds: from its start to its last record
+    seconds = max(p.stat().st_mtime for p in
+                  (MESH_DIR / "records").glob("*.json")) - started
+    recs = report.load(str(MESH_DIR / "records"))
+    check(len(recs) == len(REGISTRY) * len(SHAPES) == MESH_DRYRUN_CELLS,
+          f"the mesh dry run gave {len(recs)} cells")
+    cells = {}
+    for r in recs:
+        check(r["status"] == "ok" or (r["status"] == "skipped"
+                                      and r.get("reason")),
+              f"mesh dry run {r['arch']} {r['shape']}: {r['status']} "
+              f"{r.get('traceback', '')}")
+        if r["status"] != "ok":
+            cells[f"{r['arch']} {r['shape']}"] = {"skipped": r["reason"]}
+            continue
+        b, ro = r["bytes"], r["roofline"]
+        check(r["mesh"] == "pod16x16" and r["target"] == "H100 x256"
+              and b["state"] > 0 and ro["collective_bytes"] > 0,
+              f"mesh dry run {r['arch']} {r['shape']}: {r}")
+        cells[f"{r['arch']} {r['shape']}"] = {
+            "state_gb": b["state"] / 1e9, "fits": r["fits"],
+            "collective_gb": ro["collective_bytes"] / 1e9,
+            "flops": ro["flops_per_device"], "compute_s": ro["compute_s"],
+            "memory_floor_s": ro["memory_s"],
+            "collective_s": ro["collective_s"],
+            "bottleneck": ro["bottleneck"]}
+    for name, c in cells.items():
+        if "skipped" in c:
+            log(f"  {name} on 16 x 16: {c['skipped']}")
+        else:
+            log(f"  {name} on 16 x 16: {c['state_gb']:.3f} GB a device, "
+                f"fits {c['fits']}, {c['collective_gb']:.3f} GB of "
+                f"collectives a device, bottleneck {c['bottleneck']} "
+                f"(compute {c['compute_s']:.3e} s, memory floor "
+                f"{c['memory_floor_s']:.3e} s, link "
+                f"{c['collective_s']:.3e} s)")
+    log(report.mesh_table(recs))
+    log(f"  mesh dry run: {len(recs)} cells in {seconds:.1f} s in "
+        f"{len(procs)} processes (a model of the mesh, not a measurement)")
+    return {"seconds": seconds, "cells": cells}
+
+
+def _sharded_step() -> dict:
+    """Phase 16 (a): the train step of ``trainer.make_train_step`` with
+    every parameter and moment a DTensor on a (1, 1) mesh, against the
+    plain step from the same state, then seconds a step of each."""
+    import copy
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.data.pipeline import TokenTaskStream
+    from repro_torch.launch import mesh as mesh_lib, sharding
+    from repro_torch.launch.train import build_state
+    from repro_torch.models import build_model
+    from repro_torch.train import optimizer, trainer
+
+    cfg = get_config(LAUNCH_ARCH).scaled(n_layers=LAUNCH_LAYERS,
+                                         vocab_size=4096)
+    mesh = mesh_lib.make_host_mesh("cuda")
+    check(dist.get_backend() == "nccl" and dist.get_world_size() == 1
+          and tuple(mesh.shape) == (1, 1), "not a (1, 1) mesh over a "
+          "one-rank NCCL world")
+    plain = build_state(build_model(cfg, device="cuda"), "lm",
+                        torch.Generator("cuda").manual_seed(SEED + 16))
+    state = copy.deepcopy(plain)
+    sharding.shard_model(state.model, mesh, "train")
+    state.opt = optimizer.init_opt_state(state.model)
+    params = dict(state.model.named_parameters())
+    check(all(isinstance(p, DTensor) and isinstance(state.opt.m[n], DTensor)
+              for n, p in params.items()),
+          "a parameter or moment is not a DTensor")
+    tcfg = TrainConfig(learning_rate=1e-3, warmup_steps=20,
+                       total_steps=LAUNCH_STEPS)
+    stream = TokenTaskStream(cfg.vocab_size, LAUNCH_SEQ, LAUNCH_BATCH,
+                             seed=SEED)
+    steps = {"plain": trainer.make_train_step(plain.model, tcfg, "lm"),
+             "sharded": trainer.make_train_step(state.model, tcfg, "lm")}
+    states = {"plain": plain, "sharded": state}
+
+    def step(kind, i):
+        with mesh_lib.mesh_context(mesh if kind == "sharded" else None):
+            states[kind], metrics = steps[kind](states[kind],
+                                                stream.batch_for_step(i))
+        return float(metrics["loss"])
+
+    loss = {kind: step(kind, 0) for kind in steps}
+    loss_err = abs(loss["sharded"] - loss["plain"]) / abs(loss["plain"])
+    lr = float(optimizer.lr_schedule(1, tcfg))
+    excess, n_diff = 0.0, 0
+    for n, p in states["plain"].model.named_parameters():
+        got = states["sharded"].model.get_parameter(n).detach().full_tensor()
+        diff = (got.float() - p.detach().float()).abs()
+        n_diff += int((diff > 0).sum())
+        excess = max(excess, float((diff - 2 * lr - p.detach().float().abs()
+                                    * 2.0 ** -7).max()))
+    times = {kind: [] for kind in steps}
+    for i in range(1, 1 + MESH_TIMED_STEPS):
+        for kind in (("plain", "sharded") if i % 2 else ("sharded",
+                                                         "plain")):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(kind, i)
+            times[kind].append(time.perf_counter() - t0)
+    s_per_step = {kind: statistics.median(t[1:]) for kind, t in times.items()}
+    n_params = sum(p.numel() for p in params.values())
+    out = {"arch": cfg.name, "layers": cfg.n_layers, "params": n_params,
+           "loss_plain": loss["plain"], "loss_sharded": loss["sharded"],
+           "loss_rel_err": loss_err, "params_differing": n_diff,
+           "param_excess": excess, "s_per_step": s_per_step,
+           "dtensor_cost": s_per_step["sharded"] / s_per_step["plain"]}
+    log(f"  the sharded step on a (1, 1) mesh at {cfg.name}'s widths "
+        f"({n_params / 1e6:.1f}M parameters, {cfg.n_layers} layers, "
+        f"bfloat16, batch {LAUNCH_BATCH} x {LAUNCH_SEQ}): loss "
+        f"{loss['sharded']:.6f} against the plain step's "
+        f"{loss['plain']:.6f}, rel err {loss_err:.3e} (tol "
+        f"{MESH_LOSS_RTOL:.0e}); {n_diff} parameter elements differ after "
+        f"the step, max |diff| - 2 lr - |p| 2^-7 = {excess:.3e} (tol 0); "
+        f"seconds a step (median of {MESH_TIMED_STEPS - 1} after a warm-up, "
+        f"in turns): plain {s_per_step['plain']:.4f}, DTensor "
+        f"{s_per_step['sharded']:.4f} ({out['dtensor_cost']:.2f}x)")
+    check(loss_err <= MESH_LOSS_RTOL, "the sharded step's loss differs")
+    check(excess <= 0.0, "the sharded step's parameters differ by more "
+          "than two steps' moves")
+    dist.destroy_process_group()
+    del states, steps, plain, state
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_phase() -> dict:
+    """Phase 16: the mesh dry run's 40 cells in processes of their own,
+    and beside them the sharded train step on a (1, 1) mesh against the
+    plain step. No kernel of the six runs: the counts, zeroed before the
+    step, are read as 0 after it."""
+    from repro_torch.kernels import ops
+
+    log("phase 16: the (data, model) mesh")
+    t0 = time.perf_counter()
+    procs, started = start_mesh_dryrun()
+    try:
+        ops.reset_launch_counts()
+        out = {"step": _sharded_step()}
+        out["launches"] = ops.launch_counts()
+        check(not any(out["launches"].values()),
+              f"kernels launched by the sharded step: {out['launches']}")
+        out["dryrun"] = _mesh_dryrun(procs, started)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Phase 7: the streaming fit
 # ---------------------------------------------------------------------------
 
@@ -4198,6 +4433,10 @@ def main() -> int:
     launches.update(tools_out.pop("launches"))
     for name, err in tools_out.pop("errs").items():
         errs[name] = max(errs[name], err)
+
+    mesh_out = mesh_phase()
+    log(f"  phase 16 took {mesh_out['seconds']:.1f} s")
+    launches["mesh"] = mesh_out["launches"]
     log(f"  total {time.perf_counter() - t_start:.1f} s")
 
     kernels = []
@@ -4232,6 +4471,7 @@ def main() -> int:
     print(json.dumps({"train": train_out}))
     print(json.dumps({"decode": decode_out}))
     print(json.dumps({"tools": tools_out}))
+    print(json.dumps({"mesh": mesh_out}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

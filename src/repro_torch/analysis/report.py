@@ -8,7 +8,9 @@ The PyTorch port's counterpart of the JAX package's
 ``analysis/report.py``. The dry run (``launch/dryrun.py``) runs on the
 meta device for one H100: its table shows the bytes a cell holds and
 whether they fit on the card, and has no compile time and no collective
-count, which one card on the meta device has none of.
+count, which one card on the meta device has none of. Its records on the
+production meshes (``--mesh``) get a table of their own beside it: one
+device's bytes, ``fits``, collective bytes and the roofline's terms.
 """
 from __future__ import annotations
 
@@ -61,6 +63,43 @@ def dryrun_table(recs):
                 reason = f"{r['status']}: {reason}"
             rows.append(f"| {r['arch']} | {r['shape']} | {reason} "
                         f"| - | - | - | - | - | - |")
+    return "\n".join(rows)
+
+
+def one_card(recs):
+    """The one-card records (those without a ``mesh``)."""
+    return [r for r in recs if "mesh" not in r]
+
+
+def mesh_table(recs):
+    """One row a cell on a production mesh: one device's bytes of weights,
+    optimizer state, cache and inputs and their sum in GB, whether that
+    fits one card, the collective bytes a device moves a step and the
+    roofline's terms with the link term at the cross-node rate."""
+    rows = ["| arch | shape | mesh | status | params GB | opt GB | cache GB "
+            "| state GB | fits | collective GB | compute s | collective s "
+            "| bottleneck |",
+            "|---|---|---|---|---|---|---|---|---|---|---|---|---|"]
+    for r in recs:
+        if "mesh" not in r:
+            continue
+        if r["status"] != "ok":
+            reason = r.get("reason") or r.get("traceback", "error") \
+                .strip().splitlines()[-1][:80]
+            if not reason.startswith(r["status"]):
+                reason = f"{r['status']}: {reason}"
+            rows.append(f"| {r['arch']} | {r['shape']} | {r['mesh']} "
+                        f"| {reason} "
+                        f"| - | - | - | - | - | - | - | - | - |")
+            continue
+        b, ro = r["bytes"], r["roofline"]
+        rows.append(
+            f"| {r['arch']} | {r['shape']} | {r['mesh']} | ok "
+            f"| {b['params'] / GB:.3f} | {b['opt'] / GB:.3f} "
+            f"| {b['cache'] / GB:.3f} | {b['state'] / GB:.3f} "
+            f"| {'yes' if r['fits'] else 'no'} "
+            f"| {ro['collective_bytes'] / GB:.3f} | {fmt_s(ro['compute_s'])} "
+            f"| {fmt_s(ro['collective_s'])} | {ro['bottleneck']} |")
     return "\n".join(rows)
 
 
@@ -186,9 +225,13 @@ def main(argv=None):
     args = ap.parse_args(argv)
     recs = load(args.dir)
     print("## Dry-run (one H100, meta device)\n")
-    print(dryrun_table(recs))
+    print(dryrun_table(one_card(recs)))
     print("\n## Roofline (one H100, per step)\n")
-    print(roofline_table(recs))
+    print(roofline_table(one_card(recs)))
+    if len(one_card(recs)) < len(recs):
+        print("\n## Dry-run on the production meshes (per device, a fake "
+              "world on meta)\n")
+        print(mesh_table(recs))
     print("\n## Serving kernel roofline (scoring hot path, per call)\n")
     print(serving_kernel_table())
     print("\n## Tuned kernel blocks (autotune winners vs defaults)\n")

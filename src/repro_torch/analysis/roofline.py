@@ -6,12 +6,15 @@
 
 The PyTorch port's counterpart of the JAX package's
 ``analysis/roofline.py``, with the H100's figures in place of the TPU's.
-FLOPs come from ``torch.utils.flop_counter.FlopCounterMode`` on the meta
+FLOPs come from ``torch.utils.flop_counter``'s formulas on the meta
 device (``launch/dryrun.py``), which counts no bytes: the dry run hands in
 a floor, the state a step must read and write once. One card moves no
-collective bytes, so its term is 0. The reference's ``parse_collectives``
-reads XLA's HLO text, which nothing in the port makes, and is not ported;
-``CollectiveStats`` stays as ``compute_roofline``'s argument.
+collective bytes, so its term is 0. On a mesh the dry run records each
+collective that DTensor issues (its op, output bytes and group size) under
+``CommDebugMode``, and ``collectives_from_comm_counts`` turns them into
+``CollectiveStats`` by the reference's ring-model byte rules: the
+counterpart of the reference's ``parse_collectives``, which reads XLA's
+HLO text.
 
 The serving kernels' analytic cost models, the tuned-block registry that
 ``kernels/autotune.py`` fills, ``model_flops_for`` and ``active_params``
@@ -28,6 +31,10 @@ BF16_OPS_PER_S = 989.4e12     # bfloat16 tensor cores
 FP32_OPS_PER_S = 67e12        # float32 outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12     # HBM3
 LINK_BYTES_PER_S = 900e9      # NVLink 4, both directions together
+# InfiniBand NDR, 400 Gb/s per GPU (NVIDIA DGX H100 data sheet: one
+# ConnectX-7 port a GPU): every axis of a 16 x 16 mesh of eight-card
+# nodes crosses nodes, the counterpart of the reference's DCN_BW
+CROSS_NODE_BYTES_PER_S = 50e9
 PEAK_FLOPS = BF16_OPS_PER_S
 HBM_BW = HBM_BYTES_PER_S
 
@@ -43,6 +50,53 @@ class CollectiveStats:
 
 
 NO_COLLECTIVES = CollectiveStats(op_bytes={}, moved_bytes=0.0, n_ops=0)
+
+# torch's collective ops (functional, native functional, c10d) by the
+# reference's HLO kind names
+COLLECTIVE_KINDS = {
+    "all_reduce": "all-reduce", "allreduce_": "all-reduce",
+    "all_gather_into_tensor": "all-gather", "allgather_": "all-gather",
+    "_allgather_base_": "all-gather", "all_gather_tensor": "all-gather",
+    "reduce_scatter_tensor": "reduce-scatter",
+    "reduce_scatter_": "reduce-scatter",
+    "_reduce_scatter_base_": "reduce-scatter",
+    "all_to_all_single": "all-to-all", "alltoall_": "all-to-all",
+    "alltoall_base_": "all-to-all", "shard_dim_alltoall": "all-to-all",
+    "permute_tensor": "collective-permute",
+}
+
+
+def collectives_from_comm_counts(records) -> CollectiveStats:
+    """``CollectiveStats`` of the collectives one device issues, each a
+    (op, output bytes, group size) record as ``launch/dryrun.py`` takes it
+    under ``CommDebugMode``; op is torch's name (``all_gather_into_tensor``,
+    any namespace) or the reference's kind (``all-gather``). Bytes moved a
+    device, as the reference's ``parse_collectives`` counts them (n the
+    group size, at least 2):
+      all-reduce 2 s (n-1)/n; all-gather s (n-1)/n (s the gathered
+      output); reduce-scatter s (n-1) (s the scattered output shard);
+      all-to-all s (n-1)/n; collective-permute s."""
+    op_bytes: Dict[str, float] = {}
+    moved = 0.0
+    n_ops = 0
+    for op, size, n in records:
+        name = str(op).rsplit(".", 1)[-1]
+        kind = COLLECTIVE_KINDS.get(name, name)
+        n = max(int(n), 2)
+        if kind == "all-reduce":
+            b = 2.0 * size * (n - 1) / n
+        elif kind in ("all-gather", "all-to-all"):
+            b = size * (n - 1) / n
+        elif kind == "reduce-scatter":
+            b = size * (n - 1)
+        elif kind == "collective-permute":
+            b = size
+        else:
+            raise ValueError(f"not a collective: {op!r}")
+        op_bytes[kind] = op_bytes.get(kind, 0.0) + size
+        moved += b
+        n_ops += 1
+    return CollectiveStats(op_bytes=op_bytes, moved_bytes=moved, n_ops=n_ops)
 
 
 @dataclasses.dataclass

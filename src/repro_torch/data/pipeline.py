@@ -4,8 +4,9 @@ The PyTorch port's counterpart of the JAX package's ``data/pipeline.py``.
 Batches are generated per step on the host, in numpy, from a seed derived
 via ``fault_tolerance.DataSkipper``, so a restarted run reproduces the exact
 stream and both packages draw the same arrays. ``put_batch`` moves a host
-batch onto the model's device. Synthetic token streams and survival-
-labelled sequence tasks stand in for corpora (no external data offline).
+batch onto the model's device, or shards it over a mesh. Synthetic token
+streams and survival-labelled sequence tasks stand in for corpora (no
+external data offline).
 """
 from __future__ import annotations
 
@@ -74,7 +75,17 @@ class SurvivalTextStream:
 
 
 def put_batch(batch: Dict[str, np.ndarray],
-              device) -> Dict[str, torch.Tensor]:
-    """The host batch as tensors on ``device`` (the model's), each keeping
-    its dtype; one device, so there is nothing to shard."""
-    return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+              mesh_or_device) -> Dict[str, torch.Tensor]:
+    """The host batch as tensors, each keeping its dtype: on a device (the
+    model's), or on a ``DeviceMesh`` as DTensors with the batch dim over
+    the data axes (``launch.sharding.batch_spec``); every rank passes the
+    whole batch and keeps its own rows."""
+    if isinstance(mesh_or_device, (str, torch.device)):
+        return {k: torch.as_tensor(v, device=mesh_or_device)
+                for k, v in batch.items()}
+    from ..launch import sharding
+
+    shardings = sharding.batch_shardings(batch, mesh_or_device)
+    return {k: v if isinstance(v, sharding.DTensor) else
+            sharding.distribute(torch.as_tensor(v), shardings[k])
+            for k, v in batch.items()}

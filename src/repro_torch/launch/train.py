@@ -5,10 +5,13 @@
 The PyTorch port's counterpart of the JAX package's ``launch/train.py``:
 config registry -> model -> TrainState -> train step -> deterministic
 pipeline -> heartbeat/straggler monitor -> async checkpointing with
-resume, on one device (``--device``, default ``cuda``). The reference's
-``--production-mesh`` shards params over a 16 x 16 (data, model) mesh by
-``launch/sharding.py``'s FSDP/TP rules, a JAX/GSPMD seam with no
-PyTorch counterpart: the flag is rejected rather than run unsharded.
+resume, on one device (``--device``, default ``cuda``). With
+``--production-mesh`` every rank of a world of 256 runs it: the model's
+parameters and moments become DTensors on the 16 x 16 (data, model) mesh
+by ``launch/sharding.py``'s FSDP/TP rules, each step's batch is sharded
+over ``data``, and the loop runs under ``mesh_context`` for the model's
+activation anchors; on a smaller world the flag fails, naming the world
+it needs.
 """
 from __future__ import annotations
 
@@ -30,6 +33,8 @@ from ..train import checkpoint as ckpt_lib
 from ..train import fault_tolerance as ft
 from ..train.optimizer import init_opt_state
 from ..train.trainer import TrainState, make_train_step
+from .mesh import make_production_mesh, mesh_context
+from .sharding import shard_model
 
 
 def build_state(model, objective: str, gen: torch.Generator) -> TrainState:
@@ -59,8 +64,7 @@ def main(argv=None, on_step: Optional[Callable[[int, dict], None]] = None):
                     help="comma k=v ModelConfig overrides, e.g. "
                          "n_layers=8,d_model=512")
     ap.add_argument("--production-mesh", action="store_true",
-                    help="not ported: the 16x16 FSDP/TP mesh of "
-                         "launch/sharding.py, a JAX/GSPMD seam")
+                    help="16x16 mesh (requires 256 ranks)")
     ap.add_argument("--ckpt-dir", default="")
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--log-every", type=int, default=10)
@@ -69,11 +73,13 @@ def main(argv=None, on_step: Optional[Callable[[int, dict], None]] = None):
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
     args = ap.parse_args(argv)
-    if args.production_mesh:
-        ap.error("--production-mesh needs launch/sharding.py's FSDP/TP "
-                 "rules, a JAX/GSPMD seam with no PyTorch counterpart; "
-                 "the port trains on one device")
     dev = _device.resolve(args.device)
+    mesh = None
+    if args.production_mesh:
+        try:
+            mesh = make_production_mesh(device_type=dev.type)
+        except ValueError as e:
+            ap.error(f"--production-mesh: {e}")
 
     cfg = get_config(args.arch)
     if args.reduced:
@@ -102,37 +108,42 @@ def main(argv=None, on_step: Optional[Callable[[int, dict], None]] = None):
         if args.ckpt_dir else None
 
     def init():
-        return build_state(model, args.objective,
-                           torch.Generator(dev).manual_seed(args.seed))
+        state = build_state(model, args.objective,
+                            torch.Generator(dev).manual_seed(args.seed))
+        if mesh is not None:
+            shard_model(state.model, mesh, "train")
+            state.opt = init_opt_state(state.model)
+        return state
 
-    if args.ckpt_dir:
-        state, start = ft.resume_or_init(args.ckpt_dir, init)
-        if start:
-            print(f"[train] resumed from step {start}")
-    else:
-        state, start = init(), 0
+    with mesh_context(mesh):
+        if args.ckpt_dir:
+            state, start = ft.resume_or_init(args.ckpt_dir, init)
+            if start:
+                print(f"[train] resumed from step {start}")
+        else:
+            state, start = init(), 0
 
-    losses = []
-    for step in range(start, args.steps):
-        t0 = time.time()
-        state, metrics = step_fn(state, stream.batch_for_step(step))
-        loss = float(metrics["loss"])
-        losses.append(loss)
-        dt = time.time() - t0
-        straggler = mon.record(dt)
-        hb.beat(step, {"loss": loss})
-        if step % args.log_every == 0 or straggler:
-            tag = " STRAGGLER" if straggler else ""
-            print(f"[train] step {step} loss {loss:.4f} "
-                  f"gnorm {float(metrics['grad_norm']):.3f} "
-                  f"{dt*1e3:.0f}ms{tag}", flush=True)
-        if on_step is not None:
-            on_step(step, metrics)
-        if checkpointer and (step + 1) % args.ckpt_every == 0:
-            checkpointer.save(step + 1, state)
-    if checkpointer:
-        checkpointer.save(args.steps, state)
-        checkpointer.wait()
+        losses = []
+        for step in range(start, args.steps):
+            t0 = time.time()
+            state, metrics = step_fn(state, stream.batch_for_step(step))
+            loss = float(metrics["loss"])
+            losses.append(loss)
+            dt = time.time() - t0
+            straggler = mon.record(dt)
+            hb.beat(step, {"loss": loss})
+            if step % args.log_every == 0 or straggler:
+                tag = " STRAGGLER" if straggler else ""
+                print(f"[train] step {step} loss {loss:.4f} "
+                      f"gnorm {float(metrics['grad_norm']):.3f} "
+                      f"{dt*1e3:.0f}ms{tag}", flush=True)
+            if on_step is not None:
+                on_step(step, metrics)
+            if checkpointer and (step + 1) % args.ckpt_every == 0:
+                checkpointer.save(step + 1, state)
+        if checkpointer:
+            checkpointer.save(args.steps, state)
+            checkpointer.wait()
     print(f"[train] done: first-10 mean {np.mean(losses[:10]):.4f} "
           f"last-10 mean {np.mean(losses[-10:]):.4f}")
     return state, losses

@@ -17,11 +17,15 @@ reference has no hand kernel here either. ``flash_attention``'s
 """
 from __future__ import annotations
 
+import functools
 from typing import Mapping, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor
+
+from . import pspec
 
 Tensor = torch.Tensor
 
@@ -81,7 +85,8 @@ def apply_rope(x: Tensor, positions: Tensor, theta: float = 1e4,
     M-RoPE (Qwen2-VL): the hd/2 rotary frequency channels are split into
     ``sections`` (t, h, w) groups in order; group g rotates by
     positions[g]."""
-    freqs = rope_freqs(x.shape[-1], theta, x.device)
+    freqs = pspec.lift(rope_freqs(x.shape[-1], theta, x.device), x)
+    positions = pspec.lift(positions, x)
     if positions.dim() == 2:
         ang = positions[..., None].float() * freqs      # (B, S, hd/2)
     else:
@@ -90,7 +95,7 @@ def apply_rope(x: Tensor, positions: Tensor, theta: float = 1e4,
         bounds = torch.cumsum(torch.tensor(tuple(sections)), 0)
         group = torch.searchsorted(bounds, torch.arange(freqs.shape[0]),
                                    right=True)          # (hd/2,)
-        pos_g = positions[group.to(positions.device)]   # (hd/2, B, S)
+        pos_g = positions[pspec.lift(group.to(x.device), x)]  # (hd/2, B, S)
         ang = torch.movedim(pos_g, 0, -1).float() * freqs
     cos = torch.cos(ang)[:, :, None, :]
     sin = torch.sin(ang)[:, :, None, :]
@@ -131,9 +136,17 @@ def qkv_project(params: Mapping[str, Tensor], x: Tensor, n_heads: int,
         q = q + params["bq"]
         k = k + params["bk"]
         v = v + params["bv"]
-    return (q.reshape(b, s, n_heads, head_dim),
-            k.reshape(b, s, n_kv_heads, head_dim),
-            v.reshape(b, s, n_kv_heads, head_dim))
+    return (split_heads(q, n_heads, head_dim),
+            split_heads(k, n_kv_heads, head_dim),
+            split_heads(v, n_kv_heads, head_dim))
+
+
+def split_heads(t: Tensor, n: int, head_dim: int) -> Tensor:
+    """(B, S, n * hd) -> (B, S, n, hd); on a mesh the projection's columns
+    stay over ``model`` only where ``model`` divides the heads."""
+    b, s, _ = t.shape
+    heads = "model" if pspec.divides(t, "model", n) else None
+    return pspec.constrain(t, "dp", None, heads).reshape(b, s, n, head_dim)
 
 
 def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
@@ -152,6 +165,20 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
     no value changes), and a chunk longer than the sequence is one block.
     Memory: O(q_chunk * kv_chunk) scores per step instead of O(Sq * Skv).
     """
+    if isinstance(q, DTensor):
+        # independent over batch and KV heads: each device runs this body
+        # on its shards as plain tensors
+        if kv_len is not None:
+            raise ValueError("kv_len is for plain tensors")
+        # heads over ``model`` only where it divides the KV heads: the
+        # query heads split into (KH, G) groups, which a shard of H cannot
+        # hold whole where KH is smaller than the axis
+        heads = "model" if pspec.divides(q, "model", k.shape[2]) else None
+        ins = [pspec.placements_on(t, ("dp", None, heads, None))
+               for t in (q, k, v)]
+        return pspec.on_shards(functools.partial(
+            flash_attention, causal=causal, window=window, q_chunk=q_chunk,
+            kv_chunk=kv_chunk), ins, [ins[0]], q, k, v)
     b, sq, h, hd = q.shape
     skv, kh = k.shape[1], k.shape[2]
     g = h // kh
@@ -204,11 +231,15 @@ def decode_attention(q: Tensor, k_cache: Tensor, v_cache: Tensor,
     position; q_pos: (B,) the query's position. Masked scores are -1e30."""
     b, _, h, hd = q.shape
     kh = k_cache.shape[2]
+    # on the cache's layout: its batch over ``data`` (not ``pod``: the
+    # reference's ``cache_spec``), its slots over ``model`` (flash-decode),
+    # so the heads not
+    q = pspec.constrain(q, "data", None, None, None)
     qg = q.reshape(b, kh, h // kh, hd).float()
     s_ = torch.einsum("bkgd,bskd->bkgs", qg, k_cache.float())
     s_ = s_ * hd ** -0.5
-    pos = torch.arange(k_cache.shape[1], device=q.device)
-    mask = pos[None, :] < cur_len[:, None]                 # (B, S)
+    pos = pspec.lift(torch.arange(k_cache.shape[1], device=q.device), q)
+    mask = pos[None, :] < pspec.lift(cur_len, q)[:, None]  # (B, S)
     if window > 0:
         mask = mask & (q_pos[:, None] - pos[None, :] < window)
     s_ = torch.where(mask[:, None, None, :], s_, -1e30)

@@ -16,6 +16,11 @@ recomputes each layer in the backward pass, as the reference's
 ``jax.checkpoint`` of its scanned layer body does. ``prefill`` and
 ``decode_step`` serve (``launch/serve.py``): the cache is a NamedTuple of
 tensors of the reference's shapes, which ``decode_step`` writes in place.
+On a mesh (the parameters DTensors, ``launch.sharding.shard_model``) the
+forward keeps the reference's activation anchors (``pspec.constrain``) and
+runs the work that is independent over batch and heads (attention, the
+SSD scan, the conv, the MoE's routes and experts) on local shards; on plain
+tensors every function computes what it does without a mesh.
 """
 from __future__ import annotations
 
@@ -23,12 +28,14 @@ import functools
 from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor
 from torch.utils import checkpoint as _ckpt
 
 from .. import device as _device
 from ..configs.base import ModelConfig
-from . import layers, ssm, transformer as tf
+from . import layers, pspec, ssm, transformer as tf
 
 Tensor = torch.Tensor
 
@@ -85,6 +92,23 @@ def _maybe_remat(body: Callable, remat) -> Callable:
     if remat is True or remat == "nothing":
         return functools.partial(_ckpt.checkpoint, body, use_reentrant=False)
     raise ValueError(f"remat {remat!r}: False, True, 'nothing' or 'dots'")
+
+
+def _vocab_parallel_terms(logits: Tensor, labels: Tensor):
+    """(logsumexp, the labels' logits) over the last dim of a DTensor
+    whose vocab dim may be sharded, from reductions that stay on their
+    shards (max, sum of exponentials, the masked label logit) and are then
+    summed across them: DTensor's ``logsumexp`` and ``gather`` would
+    gather the whole (B, S, V) panel on every device first."""
+    keep = pspec.grad_as_input
+    m = logits.detach().amax(dim=-1, keepdim=True)
+    e = keep(torch.exp(logits - m))
+    lse = keep(torch.log(pspec.constrain(e.sum(dim=-1), "dp", None))
+               + m[..., 0])
+    vocab = pspec.lift(torch.arange(logits.shape[-1], device=labels.device),
+                       logits)
+    hit = keep(torch.where(labels[..., None] == vocab, logits, 0.0))
+    return lse, keep(pspec.constrain(hit.sum(dim=-1), "dp", None))
 
 
 class Model(nn.Module):
@@ -166,16 +190,30 @@ class Model(nn.Module):
         """The stub frontend's ``embeds`` (B, S, D) when the batch has
         them, else the embedded ``tokens``."""
         if "embeds" in batch:
-            return self._scale_embeds(batch["embeds"].to(self.dt))
-        return self._scale_embeds(self.embed[batch["tokens"].long()])
+            x = self._scale_embeds(batch["embeds"].to(self.dt))
+        else:
+            x = self._scale_embeds(self._lookup(batch["tokens"]))
+        return pspec.constrain(x, "dp", None, None)
+
+    def _lookup(self, tokens: Tensor) -> Tensor:
+        """Rows of the token embedding. A DTensor table is first gathered
+        whole, as ZeRO-3 gathers a weight before its use, and each device
+        looks up its own tokens (its gradient comes back as a partial sum
+        over the batch's shards)."""
+        if isinstance(self.embed, DTensor):
+            return F.embedding(tokens.long(),
+                               pspec.constrain(self.embed, None, None))
+        return self.embed[tokens.long()]
 
     def _logits(self, hidden: Tensor) -> Tensor:
         head = self.embed.T if self.lm_head is None else self.lm_head
         logits = hidden @ head
+        logits = pspec.constrain(logits, "dp", *[None] * (logits.ndim - 2),
+                                 "model")
         v = self.cfg.vocab_size
         if self.cfg.vocab_padded != v:
-            pad = torch.arange(self.cfg.vocab_padded,
-                               device=logits.device) >= v
+            pad = pspec.lift(torch.arange(self.cfg.vocab_padded,
+                                          device=logits.device) >= v, logits)
             logits = torch.where(pad, -1e30, logits.float())
         return logits
 
@@ -206,8 +244,8 @@ class Model(nn.Module):
             return_state=want_state)
         if want_state:
             y, st = y
-            return x + y, st
-        return x + y, None
+            return pspec.constrain(x + y, "dp", None, None), st
+        return pspec.constrain(x + y, "dp", None, None), None
 
     def _decoder_stack(self, x, pos, want_kv: bool, remat):
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -271,7 +309,7 @@ class Model(nn.Module):
         aux = torch.zeros((), dtype=torch.float32, device=self.device)
         if cfg.family == "encdec":
             enc = self._encoder(batch["src_embeds"], remat)
-            x = self.embed[batch["tokens"].long()]
+            x = self._lookup(batch["tokens"])
             x, kvs = self._decoder_cross_stack(x, enc, want_cache, remat)
             return x, aux, (kvs, enc)
         x = self._embed_in(batch)
@@ -304,8 +342,11 @@ class Model(nn.Module):
         hidden, aux = self.hidden_states(batch, remat=remat)
         logits = self._logits(hidden).float()
         labels = batch["labels"].long()
-        lse = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+        if isinstance(logits, DTensor):
+            lse, gold = _vocab_parallel_terms(logits, labels)
+        else:
+            lse = torch.logsumexp(logits, dim=-1)
+            gold = torch.gather(logits, -1, labels[..., None])[..., 0]
         ce = (lse - gold).mean()
         return ce + 0.01 * aux, {"ce": ce, "aux": aux}
 
@@ -329,8 +370,14 @@ class Model(nn.Module):
         """A zeroed decode cache, length 0, for ``batch`` sequences of up
         to ``max_len`` positions (a sliding-window cache holds at most the
         window) and, for an encoder-decoder, ``src_len`` source frames
-        (``max_len`` when 0): the reference's ``init_cache_specs`` shapes."""
-        return self._cache(batch, max_len, src_len or max_len, self.device)
+        (``max_len`` when 0): the reference's ``init_cache_specs`` shapes.
+        A model whose parameters are DTensors gets its cache on their mesh,
+        placed by ``launch.sharding.cache_spec``."""
+        cache = self._cache(batch, max_len, src_len or max_len, self.device)
+        if isinstance(self.embed, DTensor):
+            from ..launch import sharding
+            cache = sharding.shard_cache(cache, self.embed.device_mesh)
+        return cache
 
     def _cache(self, batch: int, max_len: int, src_len: int, dev):
         cfg, dt = self.cfg, self.dt
@@ -458,7 +505,7 @@ class Model(nn.Module):
         in place and returns (logits (B, V_pad), the cache with length + 1);
         the cache passed in is spent."""
         cfg = self.cfg
-        x = self._scale_embeds(self.embed[tokens.long()])
+        x = self._scale_embeds(self._lookup(tokens))
         cur = cache.length
         if cfg.family in DECODERS:
             for l, (p_l, w_l, th_l) in enumerate(

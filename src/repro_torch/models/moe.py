@@ -13,16 +13,20 @@ reference's ``preferred_element_type=float32``.
 The buffer has one row more than E * C, the trash slot, which is sliced
 off: an index write cannot drop an out-of-bounds row as the reference's
 ``mode="drop"`` scatter does. ``moe_ffn`` is ``route`` then ``dispatch``,
-so that a check can hold the experts' numerics at given routes.
+so that a check can hold the experts' numerics at given routes. On
+DTensors each step runs on local shards (``_moe_on_mesh``).
 """
 from __future__ import annotations
 
+import functools
 from typing import Mapping
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor, Partial, Replicate
 
+from . import pspec
 from .layers import normal
 
 Tensor = torch.Tensor
@@ -71,8 +75,16 @@ def dispatch(params: Mapping[str, Tensor], x: Tensor, probs: Tensor,
              topv: Tensor, topi: Tensor, capacity_factor: float = 1.25):
     """The experts on x (B, S, D) routed by ``route``'s output: (out (B,
     S, D), aux load-balancing loss)."""
-    b, s, d = x.shape
     e = params["w_gate"].shape[0]
+    out = _experts(x, topv, topi, params["w_gate"], params["w_up"],
+                   params["w_down"], capacity_factor)
+    return out, _aux(probs, topi, e)
+
+
+def _experts(x: Tensor, topv: Tensor, topi: Tensor, w_gate: Tensor,
+             w_up: Tensor, w_down: Tensor, capacity_factor: float) -> Tensor:
+    b, s, d = x.shape
+    e = w_gate.shape[0]
     t, k = topi.shape
     xt = x.reshape(t, d)
     cap = capacity(t, k, e, capacity_factor)
@@ -85,22 +97,61 @@ def dispatch(params: Mapping[str, Tensor], x: Tensor, probs: Tensor,
     buf = x.new_zeros(e * cap + 1, d)
     buf[slot] = xt.repeat_interleave(k, dim=0)
     xin = buf[:e * cap].reshape(e, cap, d)
-    hmid = (F.silu(_bmm_f32(xin, params["w_gate"]))
-            * _bmm_f32(xin, params["w_up"])).to(x.dtype)
-    xout = _bmm_f32(hmid, params["w_down"]).to(x.dtype)
+    hmid = (F.silu(_bmm_f32(xin, w_gate)) * _bmm_f32(xin, w_up)).to(x.dtype)
+    xout = _bmm_f32(hmid, w_down).to(x.dtype)
 
     # gather back (the trash slot reads zeros), combine with the weights
     back = torch.cat([xout.reshape(e * cap, d), xout.new_zeros(1, d)])
     out = (back[slot].reshape(t, k, d) * topv[..., None]).sum(dim=1)
+    return out.reshape(b, s, d)
 
-    # Switch-style load-balance aux: E * sum_e f_e * p_e
+
+def _aux(probs: Tensor, topi: Tensor, e: int) -> Tensor:
+    """Switch-style load-balance aux: E * sum_e f_e * p_e."""
+    t, k = topi.shape
+    onehot = F.one_hot(topi.reshape(t * k), e)
     frac = onehot.reshape(t, k, e).sum(dim=1).float().mean(dim=0)
-    aux = e * torch.sum(frac * probs.mean(dim=0))
-    return out.reshape(b, s, d), aux
+    return e * torch.sum(frac * probs.mean(dim=0))
 
 
 def moe_ffn(params: Mapping[str, Tensor], x: Tensor,
             n_experts_per_tok: int = 2, capacity_factor: float = 1.25):
     """x: (B, S, D) -> (out (B, S, D), aux load-balancing loss)."""
+    if isinstance(x, DTensor):
+        return _moe_on_mesh(params, x, n_experts_per_tok, capacity_factor)
     return dispatch(params, x, *route(params, x, n_experts_per_tok),
                     capacity_factor)
+
+
+def _moe_on_mesh(params, x: Tensor, k: int, capacity_factor: float):
+    """``moe_ffn`` on DTensors, in three steps that each run on local
+    shards: the router on each device's tokens; the experts on every
+    token (the routes gathered whole, so that the first-come slots and
+    capacity are the whole batch's, as on one device) with each expert's
+    d_ff over ``model`` (its output a partial sum there); the aux loss on
+    the gathered routes."""
+    b, s, d = x.shape
+    e, ff = params["w_gate"].shape[0], params["w_gate"].shape[-1]
+    on = functools.partial(pspec.placements_on, x)
+    t = b * s
+    rows = on(("dp", None), (t, e))
+    probs, topv, topi = pspec.on_shards(
+        lambda xs, router: route({"router": router}, xs, k),
+        [on(("dp", None, None)), on((None, None), (d, e))],
+        [rows, on(("dp", None), (t, k)), on(("dp", None), (t, k))],
+        x, params["router"])
+    whole = on((None, None))
+    f_ax = "model" if pspec.divides(x, "model", ff) else None
+    names = x.device_mesh.mesh_dim_names
+    out_p = tuple(Partial() if n == "model" and f_ax else Replicate()
+                  for n in names)
+    out = pspec.on_shards(
+        functools.partial(_experts, capacity_factor=capacity_factor),
+        [on((None, None, None)), whole, whole,
+         on((None, None, f_ax), params["w_gate"].shape),
+         on((None, None, f_ax), params["w_up"].shape),
+         on((None, f_ax, None), params["w_down"].shape)], [out_p],
+        x, topv, topi, params["w_gate"], params["w_up"], params["w_down"])
+    aux = pspec.on_shards(functools.partial(_aux, e=e), [whole, whole],
+                          [on(())], probs, topi)
+    return out, aux

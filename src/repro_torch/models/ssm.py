@@ -13,13 +13,16 @@ Chunked (SSD) evaluation over chunks of length Q:
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor
 
 from .layers import const, normal
+from . import pspec
 
 Tensor = torch.Tensor
 
@@ -53,9 +56,23 @@ class SSMState(NamedTuple):
     ssm: Tensor   # (B, H, hd, N) recurrent state, float32
 
 
+def _channels(xbc: Tensor, *others: Tensor) -> list:
+    """Placements of a (B, S, C) DTensor and of per-channel tensors
+    (``others``, channels last) in the conv: batch over the data axes,
+    channels over ``model`` where it divides them."""
+    ch = "model" if pspec.divides(xbc, "model", xbc.shape[-1]) else None
+    on = functools.partial(pspec.placements_on, xbc)
+    return [on(("dp", None, ch))] + [
+        on((None,) * (t.dim() - 1) + (ch,), t.shape) for t in others]
+
+
 def _causal_conv(xbc: Tensor, w: Tensor, b: Tensor) -> Tensor:
     """Depthwise causal conv over (B, S, C) with kernel (W, C), in the
-    input's dtype, then silu rounded to it."""
+    input's dtype, then silu rounded to it; on DTensors, on each device's
+    shards (independent over batch and channels)."""
+    if isinstance(xbc, DTensor):
+        ins = _channels(xbc, w, b)
+        return pspec.on_shards(_causal_conv, ins, [ins[0]], xbc, w, b)
     width, s = w.shape[0], xbc.shape[1]
     xp = F.pad(xbc, (0, 0, width - 1, 0))
     out = sum(xp[:, i:i + s, :] * w[i] for i in range(width))
@@ -84,15 +101,25 @@ def mamba2_forward(params, x: Tensor, *, d_state: int, head_dim: int = 64,
     a = -torch.exp(params["a_log"])                                # (H,)
 
     xh = xs.reshape(b, s, n_heads, head_dim)
-    y, st = _ssd_chunked(xh, dt, a, bb, cc, chunk)
+    y, st = _ssd(xh, dt, a, bb, cc, chunk)
     y = y + params["d_skip"][None, None, :, None] * xh.float()
     y = y.reshape(b, s, d_inner).to(x.dtype)
     out = _gated_out(params, y, z, x.dtype)
     if not return_state:
         return out
-    tail = params["conv_w"].shape[0] - 1
-    conv = F.pad(xbc_in, (0, 0, max(0, tail - s), 0))[:, -tail:, :]
-    return out, SSMState(conv=conv, ssm=st)
+    return out, SSMState(conv=_conv_tail(xbc_in, params["conv_w"].shape[0]
+                                         - 1), ssm=st)
+
+
+def _conv_tail(xbc_in: Tensor, tail: int) -> Tensor:
+    """The last ``tail`` pre-conv inputs (B, tail, C), front-padded with
+    zeros when S is shorter; on DTensors, on each device's shards."""
+    if isinstance(xbc_in, DTensor):
+        ins = _channels(xbc_in)
+        return pspec.on_shards(functools.partial(_conv_tail, tail=tail), ins,
+                               ins, xbc_in)
+    s = xbc_in.shape[1]
+    return F.pad(xbc_in, (0, 0, max(0, tail - s), 0))[:, -tail:, :]
 
 
 def _gated_out(params, y: Tensor, z: Tensor, dtype) -> Tensor:
@@ -103,6 +130,23 @@ def _gated_out(params, y: Tensor, z: Tensor, dtype) -> Tensor:
     var = torch.mean(g32 * g32, dim=-1, keepdim=True)
     g = (g32 * torch.rsqrt(var + 1e-6)).to(dtype) * params["norm_scale"]
     return g @ params["w_out"]
+
+
+def _ssd(xh: Tensor, dt: Tensor, a: Tensor, bb: Tensor, cc: Tensor,
+         chunk: int):
+    """``_ssd_chunked``; on DTensors, on each device's shards (independent
+    over batch, and over heads where ``model`` divides them)."""
+    if not isinstance(xh, DTensor):
+        return _ssd_chunked(xh, dt, a, bb, cc, chunk)
+    b, _, h, hd = xh.shape
+    heads = "model" if pspec.divides(xh, "model", h) else None
+    on = functools.partial(pspec.placements_on, xh)
+    ins = [on(("dp", None, heads, None)), on(("dp", None, heads), dt.shape),
+           on((heads,), a.shape), on(("dp", None, None), bb.shape),
+           on(("dp", None, None), cc.shape)]
+    outs = [ins[0], on(("dp", heads, None, None), (b, h, hd, bb.shape[-1]))]
+    return pspec.on_shards(functools.partial(_ssd_chunked, chunk=chunk), ins,
+                           outs, xh, dt, a, bb, cc)
 
 
 def _ssd_chunked(xh: Tensor, dt: Tensor, a: Tensor, bb: Tensor,
@@ -178,6 +222,9 @@ def mamba2_decode_step(params, x: Tensor, state: SSMState, *, d_state: int,
     w = params["conv_w"]
     out = sum(win[:, i:i + 1, :] * w[i] for i in range(w.shape[0]))
     xbc = F.silu(out + params["conv_b"]).to(x.dtype)
+    # the channels split into heads, which a shard of C need not hold
+    # whole; the batch as the cache's (over ``data``)
+    xbc = pspec.constrain(xbc, "data", None, None)
 
     xs = xbc[..., :d_inner]
     bvec = xbc[:, 0, d_inner:d_inner + d_state].float()
@@ -188,7 +235,8 @@ def mamba2_decode_step(params, x: Tensor, state: SSMState, *, d_state: int,
 
     dec = torch.exp(dt * a)
     upd = torch.einsum("bh,bhd,bn->bhdn", dt, xhh, bvec)
-    new_ssm = state.ssm * dec[..., None, None] + upd
+    new_ssm = pspec.constrain(state.ssm * dec[..., None, None] + upd,
+                              "data", "model", None, None)
     y = torch.einsum("bhdn,bn->bhd", new_ssm, cvec) \
         + params["d_skip"][None, :, None] * xhh
     y = y.reshape(b, 1, d_inner).to(x.dtype)

@@ -18,9 +18,10 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor
 
 from ..configs.base import ModelConfig
-from . import layers, moe
+from . import layers, moe, pspec
 from .layers import apply_rope, decode_attention, flash_attention, mlp, \
     qkv_project, rmsnorm
 
@@ -59,7 +60,16 @@ def init_kv_cache(cfg: ModelConfig, n_layers: int, batch: int,
 def _cache_write(k_cache: Tensor, v_cache: Tensor, k_new: Tensor,
                  v_new: Tensor, pos: Tensor) -> None:
     """Write one position (B, 1, KH, hd) at slot ``pos`` (B,) of each
-    row, in place; rolling caches pass pos = cur_len % window."""
+    row, in place; rolling caches pass pos = cur_len % window. A cache on
+    a mesh takes the reference's one-hot blend over its slots (an index
+    write has no placement rule for a sharded cache)."""
+    if isinstance(k_cache, DTensor):
+        slots = pspec.lift(torch.arange(k_cache.shape[1],
+                                        device=pos.device), k_cache)
+        hit = (slots[None, :] == pos[:, None])[:, :, None, None]
+        k_cache.copy_(torch.where(hit, k_new, k_cache))
+        v_cache.copy_(torch.where(hit, v_new, v_cache))
+        return
     rows = torch.arange(k_cache.shape[0], device=k_cache.device)
     k_cache[rows, pos] = k_new[:, 0]
     v_cache[rows, pos] = v_new[:, 0]
@@ -101,10 +111,8 @@ def _ffn(p, cfg: ModelConfig, x: Tensor) -> Tuple[Tensor, Tensor]:
 
 def cross_kv(p, cfg: ModelConfig, enc_out: Tensor) -> Tuple[Tensor, Tensor]:
     """The cross-attention K/V (B, S_src, KH, hd) of one decoder block."""
-    b, s = enc_out.shape[:2]
-    shape = (b, s, cfg.n_kv_heads, cfg.head_dim)
-    return ((enc_out @ p["xattn"]["wk"]).reshape(shape),
-            (enc_out @ p["xattn"]["wv"]).reshape(shape))
+    return tuple(layers.split_heads(enc_out @ p["xattn"][w], cfg.n_kv_heads,
+                                    cfg.head_dim) for w in ("wk", "wv"))
 
 
 def block_forward(p, cfg: ModelConfig, x: Tensor, positions: Tensor,
@@ -112,6 +120,7 @@ def block_forward(p, cfg: ModelConfig, x: Tensor, positions: Tensor,
                   enc_out: Optional[Tensor] = None, want_kv: bool = False):
     """Full-sequence block (train / prefill). Returns (x, aux, (k, v) or
     None); aux is the MoE load-balancing loss, 0 without experts."""
+    x = pspec.constrain(x, "dp", None, None)
     h = rmsnorm(p["ln1"], x, cfg.rms_eps)
     q, k, v = qkv_project(p["attn"], h, cfg.n_heads, cfg.n_kv_heads,
                           cfg.head_dim)
@@ -120,18 +129,20 @@ def block_forward(p, cfg: ModelConfig, x: Tensor, positions: Tensor,
     o = flash_attention(q, k, v, causal=causal, window=window,
                         q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk)
     x = x + o.reshape(x.shape[0], x.shape[1], -1) @ p["attn"]["wo"]
+    x = pspec.constrain(x, "dp", None, None)
 
     if enc_out is not None:
         h = rmsnorm(p["ln_x"], x, cfg.rms_eps)
-        qx = (h @ p["xattn"]["wq"]).reshape(
-            x.shape[0], x.shape[1], cfg.n_heads, cfg.head_dim)
+        qx = layers.split_heads(h @ p["xattn"]["wq"], cfg.n_heads,
+                                cfg.head_dim)
         kx, vx = cross_kv(p, cfg, enc_out)
         ox = flash_attention(qx, kx, vx, causal=False, q_chunk=cfg.q_chunk,
                              kv_chunk=cfg.kv_chunk)
         x = x + ox.reshape(x.shape[0], x.shape[1], -1) @ p["xattn"]["wo"]
 
     m, aux = _ffn(p, cfg, rmsnorm(p["ln2"], x, cfg.rms_eps))
-    return x + m, aux, ((k, v) if want_kv else None)
+    x = pspec.constrain(x + m, "dp", None, None)
+    return x, aux, ((k, v) if want_kv else None)
 
 
 def prefill_cache_kv(k_cache: Tensor, v_cache: Tensor, k: Tensor,
@@ -142,11 +153,18 @@ def prefill_cache_kv(k_cache: Tensor, v_cache: Tensor, k: Tensor,
     entries rolled so that slot == pos % window."""
     s, slots = k.shape[1], k_cache.shape[1]
     if s > slots:
-        k_cache.copy_(torch.roll(k[:, -slots:], s % slots, dims=1))
-        v_cache.copy_(torch.roll(v[:, -slots:], s % slots, dims=1))
+        k_cache.copy_(_roll(k[:, -slots:], s % slots))
+        v_cache.copy_(_roll(v[:, -slots:], s % slots))
     else:
         k_cache[:, :s] = k
         v_cache[:, :s] = v
+
+
+def _roll(x: Tensor, shift: int) -> Tensor:
+    """``torch.roll(x, shift, dims=1)`` as two slices joined, which a
+    DTensor's placement rules also cover."""
+    return torch.cat([x[:, x.shape[1] - shift:], x[:, :x.shape[1] - shift]],
+                     dim=1)
 
 
 def block_decode(p, cfg: ModelConfig, x: Tensor, cur_len: Tensor,

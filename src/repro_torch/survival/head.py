@@ -21,6 +21,7 @@ from torch import nn
 
 from ..core import beam, cox
 from ..models.model import Model
+from ..models.pspec import whole
 
 Tensor = torch.Tensor
 
@@ -57,7 +58,9 @@ def cox_loss(model: Model, batch):
     the model's risk scores (each layer rematerialized in the backward
     pass, as the reference's default), plus 0.01 x aux."""
     eta, aux = model.risk_scores(batch)
-    loss = cox_partial_likelihood(eta.float(), batch["time"], batch["event"])
+    # the risk set spans the whole batch, whichever rank holds its rows
+    loss = cox_partial_likelihood(whole(eta.float()), whole(batch["time"]),
+                                  whole(batch["event"]))
     return loss + 0.01 * aux, {"cox_nll": loss, "aux": aux}
 
 

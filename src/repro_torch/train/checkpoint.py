@@ -11,8 +11,11 @@ thread and writes them on a worker, at most one save in flight.
 A tree is a ``TrainState`` (its parameters under ``params``, by name, and
 its optimizer state under ``opt``), an ``OptState``, or nested mappings of
 tensors, arrays and ints; keys join with ``###``. Leaves are stored whole,
-so ``restore(..., device=)`` puts them on any device: the port's
-counterpart of the reference's restore onto another mesh. numpy has no
+so ``restore(..., device=)`` puts them on any device and
+``restore(..., shardings=)`` onto any mesh: the reference's elastic restore
+(a checkpoint saved on a (2, 2) mesh restores onto (4, 1) or (1, 1)). A
+DTensor leaf is gathered whole (``full_tensor``) by every rank of its mesh,
+and one rank, rank 0 of the default process group, writes. numpy has no
 bfloat16 here, so a bfloat16 leaf is stored as its raw 16 bits (``uint16``)
 with ``"dtype": "bfloat16"`` in the manifest, and read back as bfloat16
 from the port's files and from the reference's (whose ``np.save`` of an
@@ -28,7 +31,11 @@ from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
+from ..launch.sharding import Sharding, distribute, place_parameters
+from ..models.pspec import whole
 from .optimizer import OptState
 
 _SEP = "###"
@@ -64,7 +71,7 @@ def _to_host(leaf) -> tuple:
     step that then writes the parameters in place does not reach it (on the
     CPU, ``.cpu()`` and ``.numpy()`` share the leaf's storage)."""
     if isinstance(leaf, torch.Tensor):
-        t = leaf.detach().to("cpu", copy=True)
+        t = whole(leaf.detach()).to("cpu", copy=True)
         if t.dtype == torch.bfloat16:
             return t.view(torch.int16).numpy().view(np.uint16), "bfloat16"
         arr = t.numpy()
@@ -95,9 +102,17 @@ def _write(ckpt_dir: str, step: int, host: Dict[str, tuple],
     return final
 
 
+def _writes() -> bool:
+    """Whether this process writes: the only one, or rank 0."""
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
 def save(ckpt_dir: str, step: int, tree: Any, keep: int = 3) -> str:
-    """Blocking save; returns the checkpoint path."""
+    """Blocking save (every rank of a sharded tree calls it); returns the
+    checkpoint path."""
     host = {k: _to_host(v) for k, v in _flatten(tree).items()}
+    if not _writes():
+        return os.path.join(ckpt_dir, f"step_{step:09d}")
     return _write(ckpt_dir, step, host, keep)
 
 
@@ -114,6 +129,8 @@ class AsyncCheckpointer:
         # copy to the host here, so the caller may step on at once; write
         # on the worker
         host = {k: _to_host(v) for k, v in _flatten(tree).items()}
+        if not _writes():
+            return
         self._thread = threading.Thread(
             target=_write, args=(self.ckpt_dir, step, host, self.keep),
             daemon=True)
@@ -141,9 +158,11 @@ def _read(path: str, meta: dict) -> torch.Tensor:
     return torch.from_numpy(np.array(arr))
 
 
-def _leaf(t: torch.Tensor, want, key: str, device) -> Any:
+def _leaf(t: torch.Tensor, want, key: str, device, sharding=None) -> Any:
     """The stored leaf ``t`` checked against the target leaf ``want`` and
-    placed on ``device`` (default the target's device, else the host)."""
+    placed by ``sharding`` (a ``launch.sharding.Sharding``), else as the
+    target when it is a DTensor, else on ``device`` (default the target's
+    device, else the host)."""
     if isinstance(want, (int, np.integer)) and not isinstance(want, bool):
         return int(t)
     want_t = want if isinstance(want, torch.Tensor) else torch.as_tensor(
@@ -152,6 +171,10 @@ def _leaf(t: torch.Tensor, want, key: str, device) -> Any:
                                or t.dtype != want_t.dtype):
         raise ValueError(f"{key}: stored {tuple(t.shape)} {t.dtype}, the "
                          f"target is {tuple(want_t.shape)} {want_t.dtype}")
+    if sharding is None and isinstance(want, DTensor):
+        sharding = Sharding(want.device_mesh, want.placements)
+    if sharding is not None:
+        return distribute(t, sharding)
     if device is None:
         device = (want.device if isinstance(want, torch.Tensor)
                   and want.device.type != "meta" else "cpu")
@@ -159,14 +182,20 @@ def _leaf(t: torch.Tensor, want, key: str, device) -> Any:
 
 
 def restore(ckpt_dir: str, target: Any, step: Optional[int] = None,
-            device=None) -> Any:
+            device=None, shardings: Any = None) -> Any:
     """Restore the checkpoint at ``step`` (default the latest) into the
     structure of ``target``: a ``TrainState`` (the parameters written into
     its model in place, the model first moved to ``device`` if given; a
     model on the meta device is materialized there), an ``OptState``, or
     nested mappings (a new tree of tensors, each on ``device``, else on its
     target leaf's device). Every stored leaf must have its target's shape
-    and dtype."""
+    and dtype.
+
+    ``shardings``: a tree of ``launch.sharding.Sharding`` in the target's
+    structure (for a ``TrainState``, ``sharding.state_shardings``), whose
+    leaves place the restored ones on their meshes; a ``TrainState``'s
+    parameters become DTensors of theirs. Without it a DTensor target leaf
+    keeps its own mesh and placements. Every rank of a mesh restores."""
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:
@@ -175,20 +204,21 @@ def restore(ckpt_dir: str, target: Any, step: Optional[int] = None,
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)["leaves"]
 
-    def get(key, want, dev):
+    def get(key, want, dev, sh=None):
         if key not in manifest:
             raise KeyError(f"{key}: not in the checkpoint at {path}")
-        return _leaf(_read(path, manifest[key]), want, key, dev)
+        return _leaf(_read(path, manifest[key]), want, key, dev, sh)
 
-    def build(tree, prefix: str, dev):
+    def build(tree, prefix: str, dev, sh):
         if isinstance(tree, OptState):
             sub = {"m": tree.m, "v": tree.v, "step": tree.step}
-            got = build(sub, prefix, dev)
+            got = build(sub, prefix, dev, sh)
             return OptState(m=got["m"], v=got["v"], step=got["step"])
         if isinstance(tree, Mapping):
             return {k: build(v, f"{prefix}{_SEP}{k}" if prefix else str(k),
-                             dev) for k, v in tree.items()}
-        return get(prefix, tree, dev)
+                             dev, sh.get(k) if sh is not None else None)
+                    for k, v in tree.items()}
+        return get(prefix, tree, dev, sh)
 
     if _is_train_state(target):
         model = target.model
@@ -200,12 +230,15 @@ def restore(ckpt_dir: str, target: Any, step: Optional[int] = None,
             model.to_empty(device=dev)
         elif model.device != dev:
             model.to(dev)
+        sh = shardings or {}
+        if sh.get("params"):
+            place_parameters(model, sh["params"])
         with torch.no_grad():
             for name, p in model.named_parameters():
                 p.copy_(get(f"params{_SEP}{name}", p, dev))
-        target.opt = build(target.opt, "opt", dev)
+        target.opt = build(target.opt, "opt", dev, sh.get("opt"))
         return target
-    return build(target, "", device)
+    return build(target, "", device, shardings)
 
 
 def _gc(ckpt_dir: str, keep: int):

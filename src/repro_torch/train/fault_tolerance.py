@@ -6,7 +6,7 @@ The PyTorch port's counterpart of the JAX package's
     dead when it goes stale and restarts it from the last checkpoint.
   * ``StragglerMonitor``: flags steps slower than k x the EWMA.
   * ``resume_or_init``: restores the latest durable state (optionally onto
-    another device, the port's elastic case) or builds a fresh one.
+    another device or mesh, the elastic case) or builds a fresh one.
   * ``DataSkipper``: deterministic batch skipping, so a restarted run
     consumes exactly the batches the failed run did not finish; the data
     streams draw every batch from it.
@@ -79,13 +79,16 @@ class DataSkipper:
 
 
 def resume_or_init(ckpt_dir: str, init_fn: Callable[[], Any],
-                   target_shape: Any = None, device=None) -> tuple:
+                   target_shape: Any = None, device=None,
+                   shardings: Any = None) -> tuple:
     """(state, start_step). Restores the latest checkpoint under
     ``ckpt_dir`` into ``target_shape`` (default a fresh ``init_fn()``),
-    its leaves on ``device`` (default each target leaf's own), else
-    returns ``init_fn()`` and 0."""
+    its leaves on ``device`` (default each target leaf's own) or resharded
+    onto ``shardings`` (the elastic path: another mesh), else returns
+    ``init_fn()`` and 0."""
     step = ckpt_lib.latest_step(ckpt_dir)
     if step is None:
         return init_fn(), 0
     target = target_shape if target_shape is not None else init_fn()
-    return ckpt_lib.restore(ckpt_dir, target, step=step, device=device), step
+    return ckpt_lib.restore(ckpt_dir, target, step=step, device=device,
+                            shardings=shardings), step

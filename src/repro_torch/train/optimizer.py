@@ -3,7 +3,8 @@
 The PyTorch port's counterpart of the JAX package's ``train/optimizer.py``,
 written out by hand: ``torch.optim.AdamW`` applies its decay first and
 rounds in another order, so it is a different update. Moments are float32
-whatever the parameter's dtype, keyed by the model's parameter names. Every
+whatever the parameter's dtype, keyed by the model's parameter names, and
+placed on a DTensor parameter's mesh by ``sharding.opt_spec`` (ZeRO-1). Every
 scalar of the schedule and the bias corrections is computed in float32, as
 the reference computes it in float32 ``jnp``, and each elementwise step
 rounds where the reference's does (no fused multiply-adds).
@@ -15,8 +16,10 @@ import math
 from typing import Dict, Mapping, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from ..configs.base import TrainConfig
+from ..models.pspec import whole
 
 Tensor = torch.Tensor
 _F32 = torch.float32
@@ -31,13 +34,24 @@ class OptState:
 
 def init_opt_state(params) -> OptState:
     """Zero moments in float32 beside each parameter (a ``Model`` or a
-    mapping of names to tensors), on its device."""
+    mapping of names to tensors), on its device; a DTensor parameter's on
+    its mesh, placed by ``launch.sharding.opt_spec`` (ZeRO-1)."""
     if isinstance(params, torch.nn.Module):
         params = dict(params.named_parameters())
-    m = {k: torch.zeros(p.shape, dtype=_F32, device=p.device)
-         for k, p in params.items()}
+    m = {k: _zero_moment(k, p) for k, p in params.items()}
     return OptState(m=m, v={k: torch.zeros_like(t) for k, t in m.items()},
                     step=0)
+
+
+def _zero_moment(name: str, p: Tensor) -> Tensor:
+    z = torch.zeros_like(p, dtype=_F32)
+    if not isinstance(z, DTensor):
+        return z
+    from ..launch.sharding import opt_spec
+
+    want = opt_spec(name, p.shape, p.device_mesh)
+    return z if tuple(z.placements) == want else \
+        z.redistribute(p.device_mesh, want)
 
 
 def _f32(x) -> Tensor:
@@ -56,11 +70,17 @@ def lr_schedule(step: int, cfg: TrainConfig) -> Tensor:
     return _f32(cfg.learning_rate) * warm * (_f32(0.1) + _f32(0.9) * cos)
 
 
+def _sum_of_squares(x: Tensor) -> Tensor:
+    """sum(x^2) in float32; of a whole DTensor, not of a shard."""
+    return whole(torch.sum(torch.square(x.float())))
+
+
 def global_norm(tensors) -> Tensor:
-    """sqrt of the sum of squares of every tensor, in float32."""
+    """sqrt of the sum of squares of every tensor, in float32 (of the whole
+    tensors where they are DTensors: the same value on every rank)."""
     if isinstance(tensors, Mapping):
         tensors = list(tensors.values())
-    sq = sum(torch.sum(torch.square(x.float())) for x in tensors)
+    sq = sum(_sum_of_squares(x) for x in tensors)
     return torch.sqrt(sq)
 
 

@@ -6,7 +6,10 @@ The state is the ``Model`` (its parameters, the Cox head among them once
 ``deep.init_state`` has attached it) and its ``OptState``; a step takes its
 grads through ``torch.autograd``, writes the new parameters into the model
 in place and returns the same state. A parameter the objective does not
-reach gets a zero gradient, as ``jax.grad`` gives it.
+reach gets a zero gradient, as ``jax.grad`` gives it. A model whose
+parameters are DTensors (``launch.sharding.shard_model``) steps on its
+mesh: the batch is sharded over the data axes, and the loss and metrics
+are gathered whole on every rank.
 """
 from __future__ import annotations
 
@@ -14,9 +17,11 @@ import dataclasses
 from typing import Callable, Dict
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from ..configs.base import TrainConfig
 from ..data.pipeline import put_batch
+from ..models import pspec
 from ..models.model import Model
 from . import optimizer as opt_lib
 
@@ -55,6 +60,12 @@ def make_loss_fn(model: Model, objective: str = "lm",
     return loss_fn
 
 
+def _batch_target(m: Model):
+    """Where a step's batch goes: the mesh of a model whose parameters are
+    DTensors (``sharding.shard_model``), else the model's device."""
+    return m.embed.device_mesh if isinstance(m.embed, DTensor) else m.device
+
+
 def _grads(loss: Tensor, params: Dict[str, Tensor]) -> Dict[str, Tensor]:
     got = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
     return {k: torch.zeros_like(p) if g is None else g
@@ -73,7 +84,7 @@ def make_train_step(model: Model, tcfg: TrainConfig,
 
     def train_step(state: TrainState, batch) -> tuple:
         m = state.model
-        b = put_batch(batch, m.device)
+        b = put_batch(batch, _batch_target(m))
         params = dict(m.named_parameters())
         if tcfg.microbatch > 1:
             k = tcfg.microbatch
@@ -93,9 +104,11 @@ def make_train_step(model: Model, tcfg: TrainConfig,
             metrics: Dict[str, Tensor] = {}
         else:
             loss, metrics = loss_fn(b, m)
+            loss = pspec.whole(loss)
             grads = _grads(loss, params)
             loss = loss.detach()
-            metrics = {n: v.detach() for n, v in metrics.items()}
+            metrics = {n: pspec.whole(v).detach()
+                       for n, v in metrics.items()}
         new_p, state.opt, opt_metrics = opt_lib.adamw_update(
             grads, state.opt, {n: p.detach() for n, p in params.items()},
             tcfg)

@@ -384,12 +384,18 @@ def test_train_launcher_build_state_head_seed():
 
 
 def test_train_launcher_rejects_the_production_mesh(capsys):
+    """On a world of one rank, --production-mesh fails naming the 256
+    ranks its 16 x 16 mesh needs, and makes no process group."""
+    import torch.distributed as dist
+
     from repro_torch.launch import train as train_cli
 
     with pytest.raises(SystemExit):
         train_cli.main(["--arch", "qwen2.5-3b", "--reduced",
                         "--production-mesh", "--device", "cpu"])
-    assert "no PyTorch counterpart" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    assert "needs a world of 256 ranks; this one has 1" in err
+    assert not dist.is_initialized()
 
 
 def test_train_launcher_defaults_to_the_card():
