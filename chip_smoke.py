@@ -229,8 +229,19 @@ Phases, each printed as it runs; any failed check raises:
      on the 16 x 16 mesh, fake worlds of 256 ranks on meta, in four
      processes started when the phase starts, the card hidden from them):
      every cell ``ok`` or skipped with the reference's reason, each one's
-     per-device GB, fits, collective bytes and bottleneck printed.
-     No kernel launches on this path: its counts are read as 0.
+     per-device GB, fits, collective bytes and bottleneck printed; (c) the
+     step of (a) microbatched (``TrainConfig(microbatch=4)``: each
+     microbatch placed on the mesh by itself) against the plain
+     microbatched step from the same weights, by (a)'s rules, then timed
+     in turns with it; (d) qwen2.5-3b at its published widths and depth
+     (bfloat16, 4 requests) sharded in serve mode on the same mesh, its
+     cache on ``cache_spec``'s placements, served through
+     ``launch.serve.serve_batch`` beside the plain model: the greedy
+     tokens compared, the logits of the prefill and of every decode step
+     whose inputs were equal and the last caches held by phase 14's
+     bfloat16 rule (DECODE_BF16_RTOL), then seconds a decode step of both,
+     in turns. No kernel launches on this path: its counts, zeroed before
+     (a) and read after (d), are 0.
 
 Phase 2 also holds revcumsum at the selection path's (262,144, 1,000) and
 (262,144, block) panels and lipschitz at (262,144, 15) against their plain
@@ -487,6 +498,12 @@ MESH_LOSS_RTOL = 2e-5    # the sharded step's loss against the plain step's
 # the parameters after that step: within 2 lr (AdamW's first move is
 # +-lr, whose sign a gradient at round-off level can flip) and one
 # bfloat16 ulp, |p| 2^-7 (the two float32 updates can round to neighbours)
+# (c): the microbatches of (a)'s batch of 8 (2 rows each)
+MESH_MICROBATCH = 4
+# (d): serving on the mesh, qwen2.5-3b uncut; the decode steps timed in
+# turns (the first of each left out as a warm-up)
+MESH_SERVE_ARCH, MESH_SERVE_PROMPT, MESH_SERVE_NEW = "qwen2.5-3b", 128, 16
+MESH_TIMED_DECODE = 8
 MESH_DRYRUN_CELLS = 40
 MESH_DRYRUN_TIMEOUT = 400
 MESH_DRYRUN_GROUPS = (("deepseek-67b", "qwen2.5-3b", "mamba2-130m"),
@@ -2772,8 +2789,11 @@ def _record(model, profile_at=None) -> dict:
     float32 copy, the cache the last call returned, the prefill's seconds
     (synchronised), the host time at which each decode call starts, and
     torch.profiler's reading of decode call ``profile_at`` (the next one
-    when that window recorded no device time)."""
+    when that window recorded no device time). A sharded model's logits
+    are gathered whole."""
     import torch
+
+    from repro_torch.models.pspec import whole
 
     rec = {"logits": [], "starts": [], "cache": None, "profile": None,
            "profile_at": profile_at}
@@ -2785,7 +2805,7 @@ def _record(model, profile_at=None) -> dict:
         logits, cache = prefill(batch, max_len=max_len)
         torch.cuda.synchronize()
         rec["prefill_s"] = time.perf_counter() - t0
-        rec["logits"].append(logits.float().clone())
+        rec["logits"].append(whole(logits).float().clone())
         rec["cache"] = cache
         return logits, cache
 
@@ -2802,7 +2822,7 @@ def _record(model, profile_at=None) -> dict:
                 rec["profile_at"] += 1
         else:
             logits, cache = decode(cache, tokens)
-        rec["logits"].append(logits.float().clone())
+        rec["logits"].append(whole(logits).float().clone())
         rec["cache"] = cache
         return logits, cache
 
@@ -3526,14 +3546,14 @@ def _mesh_dryrun(procs, started: float) -> dict:
     return {"seconds": seconds, "cells": cells}
 
 
-def _sharded_step() -> dict:
-    """Phase 16 (a): the train step of ``trainer.make_train_step`` with
-    every parameter and moment a DTensor on a (1, 1) mesh, against the
-    plain step from the same state, then seconds a step of each."""
+def _sharded_step(mesh, microbatch: int = 0) -> dict:
+    """Phase 16 (a), or (c) with ``microbatch``: the train step of
+    ``trainer.make_train_step`` with every parameter and moment a DTensor
+    on the (1, 1) ``mesh``, against the plain step (microbatched alike)
+    from the same state, then seconds a step of each, in turns."""
     import copy
 
     import torch
-    import torch.distributed as dist
     from torch.distributed.tensor import DTensor
 
     from repro_torch.configs import TrainConfig, get_config
@@ -3545,10 +3565,6 @@ def _sharded_step() -> dict:
 
     cfg = get_config(LAUNCH_ARCH).scaled(n_layers=LAUNCH_LAYERS,
                                          vocab_size=4096)
-    mesh = mesh_lib.make_host_mesh("cuda")
-    check(dist.get_backend() == "nccl" and dist.get_world_size() == 1
-          and tuple(mesh.shape) == (1, 1), "not a (1, 1) mesh over a "
-          "one-rank NCCL world")
     plain = build_state(build_model(cfg, device="cuda"), "lm",
                         torch.Generator("cuda").manual_seed(SEED + 16))
     state = copy.deepcopy(plain)
@@ -3559,7 +3575,7 @@ def _sharded_step() -> dict:
               for n, p in params.items()),
           "a parameter or moment is not a DTensor")
     tcfg = TrainConfig(learning_rate=1e-3, warmup_steps=20,
-                       total_steps=LAUNCH_STEPS)
+                       total_steps=LAUNCH_STEPS, microbatch=microbatch)
     stream = TokenTaskStream(cfg.vocab_size, LAUNCH_SEQ, LAUNCH_BATCH,
                              seed=SEED)
     steps = {"plain": trainer.make_train_step(plain.model, tcfg, "lm"),
@@ -3593,11 +3609,15 @@ def _sharded_step() -> dict:
     s_per_step = {kind: statistics.median(t[1:]) for kind, t in times.items()}
     n_params = sum(p.numel() for p in params.values())
     out = {"arch": cfg.name, "layers": cfg.n_layers, "params": n_params,
+           "microbatch": microbatch,
            "loss_plain": loss["plain"], "loss_sharded": loss["sharded"],
            "loss_rel_err": loss_err, "params_differing": n_diff,
            "param_excess": excess, "s_per_step": s_per_step,
            "dtensor_cost": s_per_step["sharded"] / s_per_step["plain"]}
-    log(f"  the sharded step on a (1, 1) mesh at {cfg.name}'s widths "
+    what = (f"the sharded step, {microbatch} microbatches of "
+            f"{LAUNCH_BATCH // microbatch}," if microbatch
+            else "the sharded step")
+    log(f"  {what} on a (1, 1) mesh at {cfg.name}'s widths "
         f"({n_params / 1e6:.1f}M parameters, {cfg.n_layers} layers, "
         f"bfloat16, batch {LAUNCH_BATCH} x {LAUNCH_SEQ}): loss "
         f"{loss['sharded']:.6f} against the plain step's "
@@ -3607,31 +3627,182 @@ def _sharded_step() -> dict:
         f"seconds a step (median of {MESH_TIMED_STEPS - 1} after a warm-up, "
         f"in turns): plain {s_per_step['plain']:.4f}, DTensor "
         f"{s_per_step['sharded']:.4f} ({out['dtensor_cost']:.2f}x)")
-    check(loss_err <= MESH_LOSS_RTOL, "the sharded step's loss differs")
-    check(excess <= 0.0, "the sharded step's parameters differ by more "
-          "than two steps' moves")
-    dist.destroy_process_group()
-    del states, steps, plain, state
+    check(loss_err <= MESH_LOSS_RTOL, f"{what}: the loss differs")
+    check(excess <= 0.0, f"{what}: the parameters differ by more than two "
+          "steps' moves")
+    del states, steps, plain, state, params
+    torch.cuda.empty_cache()
+    return out
+
+
+def _rel(got, want) -> float:
+    got, want = got.float(), want.float()
+    return float((got - want).norm() / want.norm())
+
+
+def _decode_turns(models: dict, mesh, prompts) -> dict:
+    """Seconds a decode step of each model of ``models`` (plain,
+    sharded), in turns: both prefilled again on ``prompts`` with
+    room for MESH_TIMED_DECODE more tokens, then one step of each in turn
+    on its own greedy token, synchronised; the median after the first."""
+    import torch
+
+    from repro_torch.data.pipeline import put_batch
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models.pspec import whole
+
+    v = models["plain"].cfg.vocab_size
+    run = {}
+    for kind, m in models.items():
+        where = mesh if kind == "sharded" else "cuda"
+        with mesh_lib.mesh_context(mesh if kind == "sharded" else None):
+            logits, cache = m.prefill(
+                put_batch({"tokens": prompts}, where),
+                max_len=MESH_SERVE_PROMPT + MESH_TIMED_DECODE + 1)
+        run[kind] = [cache, torch.argmax(logits[:, :v], -1).to(
+            torch.int32)]
+    times = {kind: [] for kind in models}
+    for i in range(MESH_TIMED_DECODE):
+        for kind in (("plain", "sharded") if i % 2
+                     else ("sharded", "plain")):
+            cache, nxt = run[kind]
+            with mesh_lib.mesh_context(mesh if kind == "sharded" else None):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                logits, cache = models[kind].decode_step(cache, nxt[:, None])
+                nxt = torch.argmax(logits[:, :v], -1).to(torch.int32)
+                whole(nxt).tolist()
+                times[kind].append(time.perf_counter() - t0)
+            run[kind] = [cache, nxt]
+    return {kind: statistics.median(t[1:]) for kind, t in times.items()}
+
+
+def _sharded_serve(mesh) -> dict:
+    """Phase 16 (d): MESH_SERVE_ARCH at its published widths and depth,
+    sharded in serve mode on the (1, 1) ``mesh`` beside the plain model of
+    the same weights, both serving the same DECODE_REQUESTS requests
+    through ``launch.serve.serve_batch``; then seconds a decode step of
+    each, in turns."""
+    import copy
+
+    import numpy as np
+    import torch
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import mesh as mesh_lib, sharding
+
+    cfg = get_config(MESH_SERVE_ARCH)
+    check(cfg.dtype == "bfloat16", f"{cfg.name}: {cfg.dtype}")
+    plain = _decode_model(cfg)
+    model = sharding.shard_model(copy.deepcopy(plain), mesh, "serve")
+    check(all(isinstance(p, DTensor) for p in model.parameters()),
+          "a parameter of the served model is not a DTensor")
+    served = {"plain": _serve_case(plain, MESH_SERVE_PROMPT, MESH_SERVE_NEW,
+                                   SEED + 170, profile=False)}
+    with mesh_lib.mesh_context(mesh):
+        served["sharded"] = _serve_case(model, MESH_SERVE_PROMPT,
+                                        MESH_SERVE_NEW, SEED + 170,
+                                        profile=False)
+    got, want = served["sharded"], served["plain"]
+    cache = got["rec"]["cache"]
+    check(all(isinstance(t, DTensor) and tuple(t.placements)
+              == sharding.cache_spec(n, tuple(t.shape), mesh)
+              for n, t in zip(cache._fields, cache)),
+          "the served cache is not on cache_spec's placements")
+    # call j (0: the prefill) emits token j from inputs that hold tokens
+    # 0 .. j-1: the calls up to the first differing token had equal inputs
+    differ = np.flatnonzero((got["tokens"] != want["tokens"]).any(0))
+    same = int(differ[0]) if len(differ) else MESH_SERVE_NEW
+    v = cfg.vocab_size
+    errs = [_rel(g[:, :v], w[:, :v]) for g, w in
+            zip(got["rec"]["logits"][:same + 1],
+                want["rec"]["logits"][:same + 1])]
+    out = {"arch": cfg.name, "layers": cfg.n_layers,
+           "requests": DECODE_REQUESTS, "prompt": MESH_SERVE_PROMPT,
+           "new": MESH_SERVE_NEW,
+           "tokens_equal": bool(np.array_equal(got["tokens"],
+                                               want["tokens"])),
+           "calls_compared": len(errs), "worst_call_rel_err": max(errs),
+           "prefill_rel_err": errs[0],
+           "prefill_s": {"plain": want["out"]["prefill_s"],
+                         "sharded": got["out"]["prefill_s"]},
+           "served_decode_s_per_step": {
+               "plain": want["out"]["decode_s_per_step"],
+               "sharded": got["out"]["decode_s_per_step"]}}
+    if out["tokens_equal"]:
+        out["cache_rel_err"] = {
+            n: _rel(a.full_tensor(), b) for n, a, b in zip(
+                cache._fields, cache, want["rec"]["cache"])
+            if n != "length"}
+        check(all(bool((a.full_tensor() == b).all()) for n, a, b in zip(
+            cache._fields, cache, want["rec"]["cache"]) if n == "length"),
+            "the served caches' lengths differ")
+    else:
+        # why: the plain logits' top-2 margin where the first token differs
+        top2 = want["rec"]["logits"][same][:, :v].topk(2, dim=-1).values
+        out["first_differing_step"] = same
+        out["plain_top2_margin"] = float((top2[:, 0] - top2[:, 1]).min())
+    prompts = want["prompts"]
+    del served, got, want, cache
+    out["decode_s_per_step"] = _decode_turns(
+        {"plain": plain, "sharded": model}, mesh, prompts)
+    out["dtensor_cost"] = (out["decode_s_per_step"]["sharded"]
+                           / out["decode_s_per_step"]["plain"])
+    log(f"  serving on the (1, 1) mesh, {cfg.name} at its published widths "
+        f"({cfg.n_layers} layers, bfloat16), {DECODE_REQUESTS} x "
+        f"{MESH_SERVE_PROMPT} + {MESH_SERVE_NEW}, the model sharded in serve "
+        f"mode against the plain model: greedy tokens "
+        + ("equal" if out["tokens_equal"] else
+           f"differ from step {same} (the plain logits' top-2 margin there "
+           f"{out['plain_top2_margin']:.3e})")
+        + f"; worst ||diff|| / ||plain|| of {len(errs)} calls' logits "
+        f"{out['worst_call_rel_err']:.3e} (tol {DECODE_BF16_RTOL:.0e})"
+        + (f", caches {max(out['cache_rel_err'].values()):.3e}"
+           if out["tokens_equal"] else "")
+        + f"; prefill s plain {out['prefill_s']['plain']:.4f}, sharded "
+        f"{out['prefill_s']['sharded']:.4f}; seconds a decode step (median "
+        f"of {MESH_TIMED_DECODE - 1} after a warm-up, in turns): plain "
+        f"{out['decode_s_per_step']['plain']:.4f}, DTensor "
+        f"{out['decode_s_per_step']['sharded']:.4f} "
+        f"({out['dtensor_cost']:.2f}x)")
+    check(out["worst_call_rel_err"] <= DECODE_BF16_RTOL,
+          f"sharded serving: logits differ by {out['worst_call_rel_err']:.3e}")
+    check(all(e <= DECODE_BF16_RTOL
+              for e in out.get("cache_rel_err", {}).values()),
+          f"sharded serving: caches differ: {out.get('cache_rel_err')}")
+    del plain, model
     torch.cuda.empty_cache()
     return out
 
 
 def mesh_phase() -> dict:
     """Phase 16: the mesh dry run's 40 cells in processes of their own,
-    and beside them the sharded train step on a (1, 1) mesh against the
-    plain step. No kernel of the six runs: the counts, zeroed before the
-    step, are read as 0 after it."""
+    and beside them on a (1, 1) mesh over a one-rank NCCL world the
+    sharded train step, the microbatched one and sharded serving, each
+    against its plain twin. No kernel of the six runs: the counts, zeroed
+    before the first and read after the last, are 0."""
+    import torch.distributed as dist
+
     from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as mesh_lib
 
     log("phase 16: the (data, model) mesh")
     t0 = time.perf_counter()
     procs, started = start_mesh_dryrun()
     try:
+        mesh = mesh_lib.make_host_mesh("cuda")
+        check(dist.get_backend() == "nccl" and dist.get_world_size() == 1
+              and tuple(mesh.shape) == (1, 1), "not a (1, 1) mesh over a "
+              "one-rank NCCL world")
         ops.reset_launch_counts()
-        out = {"step": _sharded_step()}
+        out = {"step": _sharded_step(mesh),
+               "microbatched_step": _sharded_step(mesh, MESH_MICROBATCH),
+               "serve": _sharded_serve(mesh)}
         out["launches"] = ops.launch_counts()
         check(not any(out["launches"].values()),
-              f"kernels launched by the sharded step: {out['launches']}")
+              f"kernels launched on the mesh: {out['launches']}")
+        dist.destroy_process_group()
         out["dryrun"] = _mesh_dryrun(procs, started)
     finally:
         for proc in procs:

@@ -21,10 +21,12 @@ from typing import List, Optional
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from .. import device as _device
 from ..configs import REGISTRY, get_config, reduced_config
-from ..models import build_model
+from ..data.pipeline import put_batch
+from ..models import build_model, pspec
 
 
 @dataclasses.dataclass
@@ -42,23 +44,28 @@ def serve_batch(model, requests: List[Request],
     Greedy argmax over the real vocabulary; request i takes the first
     ``max_new`` tokens of its row. The cache holds the longest prompt plus
     the most new tokens plus one. ``src_embeds`` (B, S_src, D): an
-    encoder-decoder's source frames, one row per request."""
-    dev = model.device
+    encoder-decoder's source frames, one row per request. A model sharded
+    in "serve" mode (``launch.sharding.shard_model``) serves on its mesh:
+    the prompts' rows split over the data axes (call it under
+    ``mesh_context``)."""
+    target = model.embed.device_mesh if isinstance(model.embed, DTensor) \
+        else model.device
     bsz = len(requests)
     plen = max(len(r.prompt) for r in requests)
     toks = np.zeros((bsz, plen), np.int32)
     for i, r in enumerate(requests):
         toks[i, plen - len(r.prompt):] = r.prompt  # left-pad
     max_new = max(r.max_new for r in requests)
-    batch = {"tokens": torch.as_tensor(toks, device=dev)}
+    batch = {"tokens": toks}
     if src_embeds is not None:
-        batch["src_embeds"] = torch.as_tensor(src_embeds, device=dev)
+        batch["src_embeds"] = src_embeds
+    batch = put_batch(batch, target)
 
     v = model.cfg.vocab_size
     logits, cache = model.prefill(batch, max_len=plen + max_new + 1)
     nxt = torch.argmax(logits[:, :v], dim=-1).to(torch.int32)
     for step in range(max_new):
-        host = nxt.tolist()
+        host = pspec.whole(nxt).tolist()
         for i, r in enumerate(requests):
             if step < r.max_new:
                 r.out.append(host[i])

@@ -32,6 +32,7 @@ world of 256 ranks).
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, Mapping, NamedTuple, Tuple
 
 import torch
@@ -109,11 +110,13 @@ def param_shardings(model: nn.Module, mesh,
             for n, p in model.named_parameters()}
 
 
+def dp_size(mesh) -> int:
+    """Ranks the batch is split over: the product of the data axes."""
+    return math.prod(_axsize(mesh, a) for a in mesh_lib.dp_axes(mesh))
+
+
 def batch_pspec(name: str, shape, mesh) -> tuple:
-    dp = mesh_lib.dp_axes(mesh)
-    n_dp = 1
-    for a in dp:
-        n_dp *= _axsize(mesh, a)
+    dp, n_dp = mesh_lib.dp_axes(mesh), dp_size(mesh)
     if name == "positions" and len(shape) == 3:   # (3, B, S) M-RoPE
         return (None, dp if shape[1] % n_dp == 0 else None, None)
     spec = [None] * len(shape)

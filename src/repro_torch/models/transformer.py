@@ -13,12 +13,13 @@ blend).
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
-from torch.distributed.tensor import DTensor
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from ..configs.base import ModelConfig
 from . import layers, moe, pspec
@@ -150,21 +151,40 @@ def prefill_cache_kv(k_cache: Tensor, v_cache: Tensor, k: Tensor,
     """Write full-sequence (B, S, KH, hd) K/V into a zeroed cache of one
     layer, (B, S_cache, KH, hd), in place: at slots 0..S-1 when they fit,
     or, past a sliding window (S > S_cache == window), the last S_cache
-    entries rolled so that slot == pos % window."""
-    s, slots = k.shape[1], k_cache.shape[1]
-    if s > slots:
-        k_cache.copy_(_roll(k[:, -slots:], s % slots))
-        v_cache.copy_(_roll(v[:, -slots:], s % slots))
+    entries rolled so that slot == pos % window. A cache on a mesh has its
+    slots split over ``model``: each device fills its own slots from the
+    keys it holds whole (a slice write into a sharded dim lands in a
+    temporary, not in the cache)."""
+    s, n_slots = k.shape[1], k_cache.shape[1]
+    fill = functools.partial(_slot_image, s=s, n_slots=n_slots)
+    slots = torch.arange(n_slots, device=k.device)
+    if not isinstance(k_cache, DTensor):
+        k_cache.copy_(fill(k, slots))
+        v_cache.copy_(fill(v, slots))
+        return
+    # the slot indices split as the cache's slot dim; the keys whole there
+    at = tuple(k_cache.placements)
+    on_slots = tuple(Shard(0) if p == Shard(1) else Replicate() for p in at)
+    whole = tuple(Replicate() if p == Shard(1) else p for p in at)
+    slots = pspec.lift(slots, k_cache)
+    for cache, x in ((k_cache, k), (v_cache, v)):
+        cache.copy_(pspec.on_shards(fill, [whole, on_slots], [at], x, slots))
+
+
+def _slot_image(x: Tensor, slots: Tensor, *, s: int,
+                n_slots: int) -> Tensor:
+    """The cache slots ``slots`` (global indices) of a cache of
+    ``n_slots`` filled from the (B, S, KH, hd) sequence ``x`` of ``s``
+    positions: slot j holds position j (j < s), or past a sliding window
+    (s > n_slots) the one of the last n_slots positions with
+    pos % n_slots == j; a slot with no position is 0."""
+    if s > n_slots:
+        src = s - n_slots + (slots - s % n_slots) % n_slots
     else:
-        k_cache[:, :s] = k
-        v_cache[:, :s] = v
-
-
-def _roll(x: Tensor, shift: int) -> Tensor:
-    """``torch.roll(x, shift, dims=1)`` as two slices joined, which a
-    DTensor's placement rules also cover."""
-    return torch.cat([x[:, x.shape[1] - shift:], x[:, :x.shape[1] - shift]],
-                     dim=1)
+        src = slots
+    img = x.index_select(1, torch.clamp(src, max=s - 1))
+    return torch.where((src < s)[None, :, None, None], img,
+                       torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 def block_decode(p, cfg: ModelConfig, x: Tensor, cur_len: Tensor,

@@ -8,8 +8,8 @@ grads through ``torch.autograd``, writes the new parameters into the model
 in place and returns the same state. A parameter the objective does not
 reach gets a zero gradient, as ``jax.grad`` gives it. A model whose
 parameters are DTensors (``launch.sharding.shard_model``) steps on its
-mesh: the batch is sharded over the data axes, and the loss and metrics
-are gathered whole on every rank.
+mesh: the batch (each microbatch by itself) is sharded over the data
+axes, and the loss and metrics are gathered whole on every rank.
 """
 from __future__ import annotations
 
@@ -17,6 +17,7 @@ import dataclasses
 from typing import Callable, Dict
 
 import torch
+from torch.distributed.device_mesh import DeviceMesh
 from torch.distributed.tensor import DTensor
 
 from ..configs.base import TrainConfig
@@ -72,6 +73,31 @@ def _grads(loss: Tensor, params: Dict[str, Tensor]) -> Dict[str, Tensor]:
             for (k, p), g in zip(params.items(), got)}
 
 
+def _microbatches(batch, k: int, target) -> list:
+    """The ``k`` microbatches of ``batch``: rows i*B/k .. (i+1)*B/k - 1 of
+    every leaf, as the reference's reshape (k, B/k, ...) takes them, on
+    ``target`` (a device or a mesh). On a mesh each is placed by itself,
+    so its own rows split over the data axes (row blocks of a batch placed
+    whole would each sit on one data rank); a microbatch that does not
+    split evenly over them raises."""
+    def split(v):
+        return v.reshape(k, v.shape[0] // k, *v.shape[1:])
+
+    if not isinstance(target, DeviceMesh):
+        b = {n: split(v) for n, v in put_batch(batch, target).items()}
+        return [{n: v[i] for n, v in b.items()} for i in range(k)]
+    from ..launch.sharding import dp_size
+
+    b = {n: split(pspec.whole(v)) for n, v in batch.items()}
+    rows, n_dp = next(iter(b.values())).shape[1], dp_size(target)
+    if rows % n_dp:
+        raise ValueError(
+            f"a microbatch of {rows} rows (the batch over microbatch={k}) "
+            f"does not split over the mesh's {n_dp} data-parallel ranks")
+    return [put_batch({n: v[i] for n, v in b.items()}, target)
+            for i in range(k)]
+
+
 def make_train_step(model: Model, tcfg: TrainConfig,
                     objective: str = "lm") -> Callable:
     """``train_step(state, batch) -> (state, metrics)`` for ``model``. The
@@ -84,18 +110,14 @@ def make_train_step(model: Model, tcfg: TrainConfig,
 
     def train_step(state: TrainState, batch) -> tuple:
         m = state.model
-        b = put_batch(batch, _batch_target(m))
         params = dict(m.named_parameters())
         if tcfg.microbatch > 1:
             k = tcfg.microbatch
-            grads = {n: torch.zeros(p.shape, dtype=torch.float32,
-                                    device=p.device)
+            grads = {n: torch.zeros_like(p, dtype=torch.float32)
                      for n, p in params.items()}
             loss = torch.zeros((), dtype=torch.float32, device=m.device)
-            for i in range(k):
-                mb = {n: v.reshape(k, v.shape[0] // k, *v.shape[1:])[i]
-                      for n, v in b.items()}
-                loss_i, _ = loss_fn(mb, m)
+            for mb in _microbatches(batch, k, _batch_target(m)):
+                loss_i = pspec.whole(loss_fn(mb, m)[0])
                 for n, g in _grads(loss_i, params).items():
                     grads[n] = grads[n] + g
                 loss = loss + loss_i.detach()
@@ -103,7 +125,7 @@ def make_train_step(model: Model, tcfg: TrainConfig,
             loss = loss / k
             metrics: Dict[str, Tensor] = {}
         else:
-            loss, metrics = loss_fn(b, m)
+            loss, metrics = loss_fn(put_batch(batch, _batch_target(m)), m)
             loss = pspec.whole(loss)
             grads = _grads(loss, params)
             loss = loss.detach()
