@@ -1,0 +1,9 @@
+"""Share of the time inside the finetunes in which no kernel, copy or
+memset ran on the card: the idle gaps inside the ``beam.finetune``
+spans' annotations in the profiled window (torch.profiler), over the
+annotations' extent."""
+from perfbench import spans
+
+
+def read(ctx):
+    return spans.idle_pct_inside(ctx.traced.profile, "beam.finetune")

@@ -109,8 +109,9 @@ def finetune(data: cox.CoxData, support_idx, support_mask, lam2: float,
     as in the reference (padding arbitrary, masked out). A padded column
     there takes step 0, so only the real support is swept here; ``groups``
     (``ops.group_events``, made once per search) is made by the call when
-    ``use_kernel`` and not given. Returns (beta_s (k_max,), eta (n,),
-    loss)."""
+    ``use_kernel`` and not given. The sweeps are one span,
+    ``finetune.sweeps``, whose ``steps`` counts their coordinate steps.
+    Returns (beta_s (k_max,), eta (n,), loss)."""
     pos = np.flatnonzero(np.asarray(support_mask) > 0)
     cols = torch.as_tensor(np.asarray(support_idx)[pos].astype(np.int64),
                            device=data.device)
@@ -127,12 +128,13 @@ def finetune(data: cox.CoxData, support_idx, support_mask, lam2: float,
     rows = data.xT[cols]                               # (k, n)
     eta = torch.zeros(data.n, dtype=data.x.dtype, device=data.device)
     beta = torch.zeros(len(pos), dtype=data.x.dtype, device=data.device)
-    for _ in range(n_sweeps):
-        for j in range(len(pos)):
-            g, _ = solvers.coord_grad_hess(data, eta, rows[j], groups)
-            step = surrogate.quad_min(g + 2.0 * lam2 * beta[j], curv[j])
-            beta[j].add_(step)
-            eta.addcmul_(rows[j], step)
+    with trace.span("finetune.sweeps", steps=len(pos) * n_sweeps):
+        for _ in range(n_sweeps):
+            for j in range(len(pos)):
+                g, _ = solvers.coord_grad_hess(data, eta, rows[j], groups)
+                step = surrogate.quad_min(g + 2.0 * lam2 * beta[j], curv[j])
+                beta[j].add_(step)
+                eta.addcmul_(rows[j], step)
     beta_s = torch.zeros(k_max, dtype=data.x.dtype, device=data.device)
     beta_s[torch.as_tensor(pos, device=data.device)] = beta
     return beta_s, eta, cox.loss_from_eta(data, eta)

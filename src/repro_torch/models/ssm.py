@@ -21,6 +21,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.distributed.tensor import DTensor
 
+from ..obs import trace
 from .layers import const, normal
 from . import pspec
 
@@ -84,27 +85,33 @@ def mamba2_forward(params, x: Tensor, *, d_state: int, head_dim: int = 64,
                    return_state: bool = False):
     """x: (B, S, D) -> y: (B, S, D), and with ``return_state`` the final
     ``SSMState``: the last conv_width - 1 pre-conv inputs (front-padded
-    with zeros when S is shorter) and the recurrent state."""
+    with zeros when S is shorter) and the recurrent state. Spans with the
+    card's time: ``ssm.in`` (the input projection, the conv, dt and A),
+    ``ssm.scan`` (the SSD and the skip term) and ``ssm.out`` (the gated
+    norm and the output projection)."""
     b, s, d_model = x.shape
     d_inner = expand * d_model
     n_heads = d_inner // head_dim
-    # jnp.split's cut indices [d_inner, 2 d_inner + 2 N] as slices
-    proj = x @ params["w_in"]
-    z = proj[..., :d_inner]
-    xbc_in = proj[..., d_inner:2 * d_inner + 2 * d_state]
-    dt = proj[..., 2 * d_inner + 2 * d_state:]
-    xbc = _causal_conv(xbc_in, params["conv_w"], params["conv_b"])
-    xs = xbc[..., :d_inner]
-    bb = xbc[..., d_inner:d_inner + d_state]
-    cc = xbc[..., d_inner + d_state:]
-    dt = F.softplus(dt.float() + params["dt_bias"])               # (B,S,H)
-    a = -torch.exp(params["a_log"])                                # (H,)
+    with trace.span("ssm.in", device_time=True):
+        # jnp.split's cut indices [d_inner, 2 d_inner + 2 N] as slices
+        proj = x @ params["w_in"]
+        z = proj[..., :d_inner]
+        xbc_in = proj[..., d_inner:2 * d_inner + 2 * d_state]
+        dt = proj[..., 2 * d_inner + 2 * d_state:]
+        xbc = _causal_conv(xbc_in, params["conv_w"], params["conv_b"])
+        xs = xbc[..., :d_inner]
+        bb = xbc[..., d_inner:d_inner + d_state]
+        cc = xbc[..., d_inner + d_state:]
+        dt = F.softplus(dt.float() + params["dt_bias"])           # (B,S,H)
+        a = -torch.exp(params["a_log"])                            # (H,)
 
-    xh = xs.reshape(b, s, n_heads, head_dim)
-    y, st = _ssd(xh, dt, a, bb, cc, chunk)
-    y = y + params["d_skip"][None, None, :, None] * xh.float()
-    y = y.reshape(b, s, d_inner).to(x.dtype)
-    out = _gated_out(params, y, z, x.dtype)
+    with trace.span("ssm.scan", device_time=True):
+        xh = xs.reshape(b, s, n_heads, head_dim)
+        y, st = _ssd(xh, dt, a, bb, cc, chunk)
+        y = y + params["d_skip"][None, None, :, None] * xh.float()
+        y = y.reshape(b, s, d_inner).to(x.dtype)
+    with trace.span("ssm.out", device_time=True):
+        out = _gated_out(params, y, z, x.dtype)
     if not return_state:
         return out
     return out, SSMState(conv=_conv_tail(xbc_in, params["conv_w"].shape[0]

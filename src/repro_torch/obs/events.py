@@ -10,23 +10,38 @@ here, so a single file replays a run end to end.
 Disabled by default and free when disabled: ``emit()`` is a ``None``
 check. Enable by pointing ``$REPRO_EVENTS_FILE`` at a path before import
 (or any time, via ``configure(path)``); ``configure(None)`` turns it
-back off. Writes are line-buffered and serialized under a lock, so
-concurrent emitters (the serving threads) never interleave partial
-lines.
+back off. Writes are serialized under a lock, so concurrent emitters
+(the serving threads) never interleave partial lines. ``emit`` writes
+its line at once; spans are held in memory (``JsonlSink.defer``) and
+written in batches, so a file holds every span only once its sink is
+flushed or closed.
 """
 from __future__ import annotations
 
+import atexit
+import collections
 import json
 import os
 import threading
 import time
+import weakref
 from typing import IO, Optional
 
 ENV_VAR = "REPRO_EVENTS_FILE"
+# records a sink holds before ``defer`` writes them out
+BUFFER = 4096
 
 
 class JsonlSink:
-    """Append-only, thread-safe JSONL writer."""
+    """Append-only, thread-safe JSONL writer.
+
+    ``emit`` writes one line at once. ``defer`` holds a finished record in
+    memory; ``flush`` writes the held records in one locked write, and
+    runs when ``BUFFER`` are held (only those whose ``pending`` is ready,
+    unless twice that many are held), on ``close`` and at interpreter
+    exit. A record's ``pending``, when given, has ``ready()`` and
+    ``finish(rec)``, which completes the record just before it is written
+    (a span's device time, ``trace.py``)."""
 
     def __init__(self, path: str):
         self.path = path
@@ -35,16 +50,46 @@ class JsonlSink:
             os.makedirs(d, exist_ok=True)
         self._f: IO[str] = open(path, "a")
         self._lock = threading.Lock()
+        self._flush_lock = threading.Lock()
+        self._held: collections.deque = collections.deque()
+        _OPEN.add(self)
 
     def emit(self, kind: str, **fields) -> None:
         rec = {"ts": time.time(), "kind": kind}
         rec.update(fields)
-        line = json.dumps(rec, default=_jsonable)
+        line = _ENCODE(rec)
         with self._lock:
             self._f.write(line + "\n")
             self._f.flush()
 
+    def defer(self, rec: dict, pending=None) -> None:
+        """Hold ``rec`` (its ``ts`` and ``kind`` set) for the next flush."""
+        self._held.append((rec, pending))
+        if len(self._held) >= BUFFER:
+            self.flush(wait=len(self._held) >= 2 * BUFFER)
+
+    def flush(self, wait: bool = True) -> None:
+        """Write the held records; with ``wait`` False, only those up to
+        the first whose ``pending`` is not ready yet."""
+        with self._flush_lock:
+            out = []
+            while self._held:
+                rec, pending = self._held[0]
+                if pending is not None:
+                    if not wait and not pending.ready():
+                        break
+                    pending.finish(rec)
+                self._held.popleft()
+                out.append(_ENCODE(rec))
+            if not out:
+                return
+            with self._lock:
+                if not self._f.closed:
+                    self._f.write("\n".join(out) + "\n")
+                    self._f.flush()
+
     def close(self) -> None:
+        self.flush()
         with self._lock:
             if not self._f.closed:
                 self._f.close()
@@ -57,6 +102,26 @@ def _jsonable(o):
     except (TypeError, ValueError):
         return str(o)
 
+
+_ENCODE = json.JSONEncoder(default=_jsonable).encode
+
+# every sink made, for the flush at exit and the drop after a fork
+_OPEN: "weakref.WeakSet[JsonlSink]" = weakref.WeakSet()
+
+
+def _flush_open() -> None:
+    for sink in list(_OPEN):
+        sink.flush()
+
+
+def _drop_held() -> None:
+    """A forked child writes none of its parent's held records."""
+    for sink in list(_OPEN):
+        sink._held.clear()
+
+
+atexit.register(_flush_open)
+os.register_at_fork(after_in_child=_drop_held)
 
 _LOCK = threading.Lock()
 _SINK: Optional[JsonlSink] = None

@@ -183,7 +183,8 @@ class ScoringEngine:
         return fn
 
     def _run(self, kind: str, x, strata):
-        with trace.span("engine.score", kind=kind) as sp_span:
+        with trace.span("engine.score", device_time=True,
+                        kind=kind) as sp_span:
             xp, b, bucket = self._pad(self._gather(x))
             sp = np.zeros(bucket, np.int32)
             if strata is not None:

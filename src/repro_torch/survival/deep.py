@@ -27,6 +27,7 @@ runs on the model's device, a card unless built on ``"cpu"``.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -38,6 +39,7 @@ from ..core.beam import BeamResult
 from ..data.pipeline import SurvivalTextStream, put_batch
 from ..models import build_model
 from ..models.model import Model
+from ..obs import trace
 from ..serving.artifacts import SurvivalModel, fit_survival_model
 from ..train.loop import run_loop
 from ..train.optimizer import init_opt_state
@@ -146,13 +148,17 @@ def make_featurizer(model: Model) -> Callable:
     sequences (a host batch with ``tokens``) into the feature vectors a
     deep ``SurvivalModel`` artifact scores. One backbone pass gives both:
     the risk is the Cox head on the pooled features, as
-    ``Model.risk_scores`` computes it."""
+    ``Model.risk_scores`` computes it. A batch is one span,
+    ``featurize.batch``, with its ``tokens`` and the card's time."""
 
     @torch.inference_mode()
     def featurize(batch):
-        b = put_batch({"tokens": batch["tokens"]}, model.device)
-        feats = pooled_features(model, b)
-        return model.risk_from_pooled(feats), feats
+        tokens = batch["tokens"]
+        with trace.span("featurize.batch", device_time=True,
+                        tokens=math.prod(tokens.shape)):
+            b = put_batch({"tokens": tokens}, model.device)
+            feats = pooled_features(model, b)
+            return model.risk_from_pooled(feats), feats
 
     return featurize
 
