@@ -12,7 +12,12 @@ Phases, each printed as it runs; any failed check raises:
      maximum error beside its tolerance: cox_coord at n = 1, a tile - 1, a
      tile, a tile + 1, 262,144 and 1,048,577, on tie-free data, small tie
      groups, groups wider than a tile and one group of a quarter of the
-     rows, with eta ~ 0.8 N(0, 1) and ~ U(-80, 80); lipschitz at n = 1,
+     rows, with eta ~ 0.8 N(0, 1) and ~ U(-80, 80); cox_coord over C =
+     8, 30 and 40 candidates at n = 262,144, tie-free and tied, each row
+     bit for bit a single call, and the fused step ``cox_coord_step`` over
+     five (j, prev) steps: eta within 1 ulp of its plain version's, (g, h)
+     a single call's on that eta bit for bit, step and beta within 1 ulp
+     of ``quad_min``'s, the launch count up by C a call; lipschitz at n = 1,
      257, 65,537 and 262,144 and p = 1, 15 (the selection path's
      finetune), 37 and 1,000, tie-free, in small groups, with a quarter of the rows in one group, with groups that
      straddle segment edges and with every row in one group; both curve
@@ -72,8 +77,10 @@ Phases, each printed as it runs; any failed check raises:
      the launches. The counts are zeroed before each call and must be
      exactly what the design implies (losses are plain
      ``cox.loss_from_eta``, so they launch nothing):
-       cox_coord = sum over finetune calls of |support| x 60 sweeps;
-       lipschitz = the finetune calls, + 1 for beam_search's own L2;
+       cox_coord = sum over finetuned candidates of |support| x 60
+                   sweeps (a batched call counts one a candidate);
+       lipschitz = 1 for beam_search (its L2 serves its finetunes), one a
+                   finetune for omp_greedy;
        revcumsum = beams scored x (2 x 4 steps + 1) x column blocks
                    (``beam.column_blocks``: 4 of <= 256 columns here), and
                    0 for omp_greedy.
@@ -258,7 +265,9 @@ the selection path's and phase 10's launch counts, then one with phase
 (``{"decode": ...}``), then one with phase 15's (``{"tools": ...}``),
 then one with phase 16's (``{"mesh": ...}``), then one with every
 kernel's numbers (its
-``launches_by_path`` gives every path's count), then the card's name and
+``launches_by_path`` gives every path's count, in ``launches_unit``:
+calls, or for cox_coord candidate coordinates, C a call over C
+candidates), then the card's name and
 power limit; the last is ``{"ok": true, "device": {...}}``. Without CUDA,
 or without the repository beside it, the script exits nonzero and prints
 no result.
@@ -838,6 +847,112 @@ def check_kernels(coord_ns=None, curve_bs=CURVE_BS,
                            lambda: survival_curves(eta, h0),
                            curves_mod.KERNELS_PER_CALL, "curves_panel")
     return errs
+
+
+COORD_CANDIDATES = (8, 30, 40)   # the search's C: 8 at size 1, ~30 above
+# (j, prev) of the fused steps checked over s = 5 columns: the first step
+# with nothing pending, steps along a sweep, and a sweep's wrap-around
+COORD_STEPS = ((0, None), (1, 0), (2, 1), (4, 2), (0, 4))
+
+
+def _ulps(a, b) -> float:
+    """Largest |a - b| in float32 ulps of b."""
+    import torch
+
+    a, b = a.double(), b.double()
+    return float(((a - b).abs() / torch.finfo(torch.float32).eps
+                  / b.abs().clamp(min=1e-30)).max())
+
+
+def check_coord_candidates(n=N, cs=COORD_CANDIDATES, s=5,
+                           lam2=1e-3) -> float:
+    """``cox_coord`` over (C, n) and the fused ``cox_coord_step`` at the
+    search's C and n, on tie-free and tied times. The batched call's rows
+    equal C single calls bit for bit (orders 2 and 3). Over ``COORD_STEPS``
+    the fused step is held against the eager step on the same inputs
+    (``solvers.coord_step``'s plain route): its eta within 1 ulp of the
+    eager ``addcmul``, its (g, h) rows single calls' on that eta bit for
+    bit and within ``COORD_TOL`` of the plain version's, its step and beta
+    ``surrogate.quad_min`` of its g within 1 ulp. Each call adds C to the
+    ``cox_coord`` launch count. Returns the largest |g, h error| against
+    the plain version."""
+    import torch
+
+    from repro_torch.core import surrogate
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.cox_coord import cox_coord
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    worst_err = 0.0
+    for ties in ("none", "quarter"):
+        d = (torch.rand(n, device="cuda", generator=gen) < 0.7).float()
+        rs = _risk_start(n, ties, gen)
+        groups = ops.group_events(d, rs)
+        for c in cs:
+            what = f"cox_coord C={c} n={n} ties={ties}"
+            rows = torch.randn(c, s, n, device="cuda", generator=gen)
+            eta = 0.8 * torch.randn(c, n, device="cuda", generator=gen)
+            x0 = rows[:, 0].contiguous()
+            for order in (2, 3):
+                ops.reset_launch_counts()
+                got = cox_coord(eta, x0, d, rs, order, groups).clone()
+                check(ops.launch_counts()["cox_coord"] == c,
+                      f"{what} order={order}: the launch count rose by "
+                      f"{ops.launch_counts()['cox_coord']}, not {c}")
+                same = all(torch.equal(got[r], cox_coord(
+                    eta[r], x0[r], d, rs, order, groups)) for r in range(c))
+                check(same, f"{what} order={order}: a row differs from its "
+                            f"single call")
+            beta = 0.1 * torch.randn(c, s, device="cuda", generator=gen)
+            curv = torch.rand(c, s, device="cuda", generator=gen) + 0.5
+            step = torch.zeros(c, device="cuda")
+            worst = {"eta": 0.0, "step": 0.0, "beta": 0.0, "gh": 0.0}
+            for j, prev in COORD_STEPS:
+                e0, b0, s0 = eta.clone(), beta.clone(), step.clone()
+                ops.reset_launch_counts()
+                out = ops.cox_coord_step(eta, rows, j, prev, beta, curv,
+                                         step, d, groups, lam2).clone()
+                check(ops.launch_counts()["cox_coord"] == c,
+                      f"{what} step ({j}, {prev}): the launch count rose "
+                      f"by {ops.launch_counts()['cox_coord']}, not {c}")
+                if prev is None:
+                    check(torch.equal(eta, e0),
+                          f"{what} step ({j}, None): eta moved")
+                else:
+                    worst["eta"] = max(worst["eta"], _ulps(
+                        eta, e0.addcmul(rows[:, prev], s0[:, None])))
+                xj = rows[:, j].contiguous()
+                same = all(torch.equal(out[r], cox_coord(
+                    eta[r], xj[r], d, rs, 2, groups)) for r in range(c))
+                check(same, f"{what} step ({j}, {prev}): (g, h) differs from "
+                            f"a single call on the step's eta")
+                for r in range(c):
+                    scales = _coord_scales(eta[r], xj[r], d, rs, 2)[:2]
+                    want = ref.cox_coord_groups_ref(eta[r], xj[r], d, groups)
+                    errs = [abs(float(out[r, q]) - float(want[q]))
+                            for q in range(2)]
+                    worst_err = max(worst_err, max(errs))
+                    worst["gh"] = max(worst["gh"], *(e / sc for e, sc in
+                                                     zip(errs, scales)))
+                dq = surrogate.quad_min(out[:, 0] + 2.0 * lam2 * b0[:, j],
+                                        curv[:, j])
+                worst["step"] = max(worst["step"], _ulps(step, dq))
+                worst["beta"] = max(worst["beta"],
+                                    _ulps(beta[:, j], b0[:, j] + dq))
+                others = [q for q in range(s) if q != j]
+                check(torch.equal(beta[:, others], b0[:, others]),
+                      f"{what} step ({j}, {prev}): another column's beta "
+                      f"moved")
+            log(f"  {what}: rows = single calls bit for bit; fused steps "
+                f"{[jp for jp in COORD_STEPS]}: eta {worst['eta']:.2f} ulp "
+                f"of the eager step's, step {worst['step']:.2f} and beta "
+                f"{worst['beta']:.2f} ulp of quad_min's, (g, h) "
+                f"{worst['gh']:.3e} of sum|terms| from the plain version "
+                f"(tol {COORD_TOL:.0e})")
+            check(worst["eta"] <= 1.0 and worst["step"] <= 1.0
+                  and worst["beta"] <= 1.0 and worst["gh"] <= COORD_TOL,
+                  f"{what}: the fused step is off the eager step")
+    return worst_err
 
 
 def _suffix_abs(x):
@@ -2199,7 +2314,7 @@ def deep_phase() -> dict:
     _check_counts("deep-survival path", launched, {
         "cox_coord": sweeps * sum(size * c for size, c in
                                   enumerate(candidates, 1)),
-        "lipschitz": sum(candidates) + 1,
+        "lipschitz": 1,
         "revcumsum": sum(scored) * (2 * steps + 1) * len(blocks),
         "survival_curves": path_calls})
     check(path_calls == len(reg.prewarm_batches) + st["n_batches"],
@@ -2709,7 +2824,7 @@ def train_phase(x, t, delta, lam2: float) -> dict:
     _check_counts("training path (deep.run)", launched, {
         "cox_coord": sweeps * sum(size * c for size, c in
                                   enumerate(candidates, 1)),
-        "lipschitz": sum(candidates) + 1,
+        "lipschitz": 1,
         "revcumsum": sum(scored) * (2 * steps + 1) * len(blocks)})
     check(len(size_s) == dcfg.k and res.nnz <= dcfg.k
           and res.artifact.is_sparse and res.artifact.k == res.nnz
@@ -4317,7 +4432,7 @@ def selection_phase(data, beta_star) -> dict:
     _check_counts("beam_search", launches, {
         "cox_coord": sweeps * sum(size * c for size, c in
                                   enumerate(candidates, 1)),
-        "lipschitz": sum(candidates) + 1,
+        "lipschitz": 1,
         "revcumsum": sum(scored) * (2 * SELECT["score_steps"] + 1)
         * len(blocks)})
     out = {"launches": {"beam_search": launches}, "size_s": size_s}
@@ -4504,6 +4619,7 @@ def main() -> int:
 
     log("phase 2: kernels against their plain versions")
     errs = check_kernels()
+    errs["cox_coord"] = max(errs["cox_coord"], check_coord_candidates())
     stream_errs = check_stream_kernels()
     errs.update(stream_errs["float32"])
     errs_bf16 = stream_errs["bfloat16"]
@@ -4618,6 +4734,9 @@ def main() -> int:
             "name": name, "route": "cuda", "source": source,
             "replaces": REPLACES[name],
             "launches": launches[PATH_OF[name]][name],
+            # a cox_coord call over C candidates counts C
+            "launches_unit": ("candidate coordinates" if name == "cox_coord"
+                              else "calls"),
             "max_abs_err": errs[name], "ms": ms, "plain_ms": plain,
             "bound_ms": bound, "bound_by": by, "library_ms": library[name],
             "device_ms": dev, "path": PATH_OF[name],

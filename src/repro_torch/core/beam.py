@@ -15,15 +15,25 @@ the inner work runs on ``data``'s device:
     decrease"). Where the reference maps one column at a time over p, the
     port walks (n, block) panels of columns: each step is two suffix scans
     of a panel (``revcumsum`` on a card), the loss one more.
-  * ``finetune``: CD sweeps over the support's columns, each coordinate's
-    gradient from ``cox_coord`` and the columns' L2 from ``lipschitz``.
+  * ``finetune_batch``: CD sweeps over the support columns of C
+    candidate supports of one size at once, a coordinate descent over a
+    candidate axis: each coordinate step of all C is one
+    ``solvers.coord_step`` (on a card one ``cox_coord_step`` call: two
+    launches, the surrogate step fused in, no host read), and
+    the host reads the C losses and betas once. ``beam_search`` finetunes
+    every unique candidate of a size in one such call, with the columns'
+    L2 from its own constants; ``finetune`` is one candidate (C = 1), its
+    L2 from ``lipschitz``.
 
-``use_kernel=False`` takes ``core/cox.py``'s plain versions throughout.
-Losses (a beam's, a finetuned support's) are plain ``cox.loss_from_eta``
-in both, so what the kernels launch is set by the search alone: per
-scored beam ``(2 * steps + 1) * len(column_blocks(...))`` ``revcumsum``
-calls; per finetune ``|support| * n_sweeps`` ``cox_coord`` calls and one
-``lipschitz``; ``beam_search`` one more ``lipschitz`` for its own L2.
+``use_kernel=False`` takes ``core/cox.py``'s plain versions throughout,
+one candidate at a time. Losses (a beam's, a finetuned support's) are
+plain ``cox.loss_from_eta`` in both, so what the kernels launch is set by
+the search alone: per scored beam ``(2 * steps + 1) *
+len(column_blocks(...))`` ``revcumsum`` calls; per support size
+``n_sweeps * size`` ``cox_coord_step`` calls over its C candidates, which
+count ``C * size * n_sweeps`` ``cox_coord`` launches; one ``lipschitz``
+for the search's L2. ``finetune`` alone (``omp_greedy``'s) launches
+``|support| * n_sweeps`` ``cox_coord`` and one ``lipschitz``.
 """
 from __future__ import annotations
 
@@ -109,35 +119,83 @@ def finetune(data: cox.CoxData, support_idx, support_mask, lam2: float,
     as in the reference (padding arbitrary, masked out). A padded column
     there takes step 0, so only the real support is swept here; ``groups``
     (``ops.group_events``, made once per search) is made by the call when
-    ``use_kernel`` and not given. The sweeps are one span,
+    ``use_kernel`` and not given. With ``use_kernel`` this is
+    ``finetune_batch`` of one candidate. The sweeps are one span,
     ``finetune.sweeps``, whose ``steps`` counts their coordinate steps.
     Returns (beta_s (k_max,), eta (n,), loss)."""
     pos = np.flatnonzero(np.asarray(support_mask) > 0)
+    beta_s = torch.zeros(k_max, dtype=data.x.dtype, device=data.device)
+    at = torch.as_tensor(pos, device=data.device)
+    if use_kernel:
+        betas, etas, losses = finetune_batch(
+            data, np.asarray(support_idx)[pos][None], lam2, n_sweeps,
+            groups)
+        beta_s[at] = betas[0]
+        return beta_s, etas[0], losses[0]
     cols = torch.as_tensor(np.asarray(support_idx)[pos].astype(np.int64),
                            device=data.device)
     xs = data.x[:, cols].contiguous()                  # (n, k)
-    if use_kernel:
-        if groups is None:
-            groups = ops.group_events(data.delta, data.risk_start)
-        l2c, _ = ops.lipschitz_constants(xs, data.delta, data.risk_start,
-                                         groups)
-    else:
-        groups = None
-        l2c, _ = cox.lipschitz_constants(cox.with_x(data, xs))
+    l2c, _ = cox.lipschitz_constants(cox.with_x(data, xs))
     curv = l2c + 2.0 * lam2
     rows = data.xT[cols]                               # (k, n)
     eta = torch.zeros(data.n, dtype=data.x.dtype, device=data.device)
     beta = torch.zeros(len(pos), dtype=data.x.dtype, device=data.device)
-    with trace.span("finetune.sweeps", steps=len(pos) * n_sweeps):
+    with trace.span("finetune.sweeps", steps=len(pos) * n_sweeps,
+                    candidates=1):
         for _ in range(n_sweeps):
             for j in range(len(pos)):
-                g, _ = solvers.coord_grad_hess(data, eta, rows[j], groups)
+                g, _ = solvers.coord_grad_hess(data, eta, rows[j], None)
                 step = surrogate.quad_min(g + 2.0 * lam2 * beta[j], curv[j])
                 beta[j].add_(step)
                 eta.addcmul_(rows[j], step)
-    beta_s = torch.zeros(k_max, dtype=data.x.dtype, device=data.device)
-    beta_s[torch.as_tensor(pos, device=data.device)] = beta
+    beta_s[at] = beta
     return beta_s, eta, cox.loss_from_eta(data, eta)
+
+
+def finetune_batch(data: cox.CoxData, supports, lam2: float,
+                   n_sweeps: int = 60, groups: Optional[Tensor] = None,
+                   l2c: Optional[Tensor] = None):
+    """``finetune`` of C candidate supports of one size at once, through
+    the kernels (their plain versions on the CPU).
+
+    ``supports`` is a (C, s) host array of column indices. Each candidate
+    runs its own CD from beta = 0 over its columns in order, as
+    ``finetune`` does, all C in step: a coordinate step of every candidate
+    is one ``solvers.coord_step`` (its eta update folded into the next
+    step's), and nothing is read back inside the sweeps. ``l2c`` is every
+    column's L2 (the search's ``solvers.constants``); without it the call
+    takes ``lipschitz`` over the candidates' columns. ``groups`` is made
+    when not given. The sweeps are one span, ``finetune.sweeps``: ``steps``
+    the candidate coordinate steps (C * s * n_sweeps), ``candidates`` C.
+    Returns (betas (C, s), etas (C, n), losses (C,))."""
+    cols = torch.as_tensor(np.asarray(supports, np.int64),
+                           device=data.device)
+    c, s = cols.shape
+    if groups is None:
+        groups = ops.group_events(data.delta, data.risk_start)
+    if l2c is None:
+        xs = data.x[:, cols.flatten()].contiguous()    # (n, C s)
+        l2, _ = ops.lipschitz_constants(xs, data.delta, data.risk_start,
+                                        groups)
+        curv = l2.view(c, s) + 2.0 * lam2
+    else:
+        curv = l2c[cols] + 2.0 * lam2                  # (C, s)
+    rows = data.xT[cols]                               # (C, s, n)
+    eta = torch.zeros(c, data.n, dtype=data.x.dtype, device=data.device)
+    beta = torch.zeros(c, s, dtype=data.x.dtype, device=data.device)
+    step = torch.zeros(c, dtype=data.x.dtype, device=data.device)
+    with trace.span("finetune.sweeps", steps=c * s * n_sweeps,
+                    candidates=c):
+        prev = None
+        for _ in range(n_sweeps):
+            for j in range(s):
+                solvers.coord_step(data, eta, rows, j, prev, beta, curv,
+                                   step, groups, lam2)
+                prev = j
+        if prev is not None:                           # the last update
+            eta.addcmul_(rows[:, prev], step[:, None])
+    losses = torch.stack([cox.loss_from_eta(data, e) for e in eta])
+    return beta, eta, losses
 
 
 def _padded(supp: tuple, k: int):
@@ -160,8 +218,8 @@ def beam_search(data: cox.CoxData, k: int, beam_width: int = 5,
     ``beam.score`` (beams scored) and ``beam.finetune`` (candidates) are
     recorded when tracing is on; an ``obs.TelemetryCallback`` also gets a
     tagged ``beam.size`` event per size (candidates, best loss, chosen
-    support). The host reads each score vector and finetuned loss, as the
-    reference does."""
+    support). The host reads each score vector, as the reference does, and
+    each size's finetuned losses and betas at once."""
     _device.expect(data, device)
     l2c, _, groups = solvers.constants(data, use_kernel)
     p = data.p
@@ -185,23 +243,28 @@ def beam_search(data: cox.CoxData, k: int, beam_width: int = 5,
                         for l in top:
                             new_supp = tuple(sorted(supp + (int(l),)))
                             candidates.setdefault(new_supp, True)
-                # finetune every unique candidate support
-                scored = []
+                # finetune every unique candidate support: all at once
+                # through the kernels, one at a time on the plain route
+                supports = np.array(list(candidates), np.int64)
                 with trace.span("beam.finetune",
                                 n_candidates=len(candidates)):
-                    for new_supp in candidates:
-                        idx, msk = _padded(new_supp, k)
-                        beta_s, eta, loss = finetune(
-                            data, idx, msk, lam2, k,
-                            n_sweeps=finetune_sweeps, use_kernel=use_kernel,
-                            groups=groups)
-                        scored.append((float(loss), new_supp, eta,
-                                       beta_s.cpu().numpy(), idx))
+                    if use_kernel:
+                        betas, etas, losses = finetune_batch(
+                            data, supports, lam2, finetune_sweeps, groups,
+                            l2c)
+                    else:
+                        betas, etas, losses = map(torch.stack, zip(*(
+                            finetune(data, supp, np.ones(size), lam2, size,
+                                     n_sweeps=finetune_sweeps,
+                                     use_kernel=False)
+                            for supp in supports)))
+                    scored = list(zip(losses.cpu().tolist(), candidates,
+                                      etas, betas.cpu().numpy()))
                 scored.sort(key=lambda s: s[0])
                 beams = [(s[0], s[1], s[2]) for s in scored[:beam_width]]
                 best = scored[0]
                 beta_dense = np.zeros(p, dtype=np.float32)
-                beta_dense[best[4][: len(best[1])]] = best[3][: len(best[1])]
+                beta_dense[list(best[1])] = best[3]
                 out.supports.append(np.asarray(best[1], np.int64))
                 out.betas.append(beta_dense)
                 out.losses.append(best[0])

@@ -116,6 +116,31 @@ def coord_grad_hess(data: cox.CoxData, eta: Tensor, xl: Tensor,
     return g, h
 
 
+def coord_step(data: cox.CoxData, eta: Tensor, rows: Tensor, j: int,
+               prev: Optional[int], beta: Tensor, curv: Tensor, step: Tensor,
+               groups: Tensor, lam2: float) -> None:
+    """One quadratic-surrogate coordinate step of C candidate supports at
+    once, in place (``beam.finetune_batch``'s): eta (C, n), rows (C, s, n)
+    the candidates' columns, beta and curv (C, s), step (C,) the steps
+    last taken. The step pending from column ``prev`` (None: none) is
+    applied first, eta[c] += rows[c, prev] * step[c]; then column j's
+    ``quad_min`` step goes into beta[:, j] and step. On a card that is one
+    fused ``ops.cox_coord_step`` (two launches, nothing read back);
+    elsewhere the same step in eager ops over ``coord_grad_hess``, the
+    fused step's plain version, which each candidate's (g, h) reaches as
+    every other solver's do."""
+    if eta.is_cuda:
+        ops.cox_coord_step(eta, rows, j, prev, beta, curv, step, data.delta,
+                           groups, lam2)
+        return
+    if prev is not None:
+        eta.addcmul_(rows[:, prev], step[:, None])
+    g, _ = coord_grad_hess(data, eta, rows[:, j].contiguous(), groups)
+    d = surrogate.quad_min(g + 2.0 * lam2 * beta[:, j], curv[:, j])
+    beta[:, j] += d
+    step.copy_(d)
+
+
 def _cd_sweep(data: cox.CoxData, eta: Tensor, beta: Tensor, l2c: Tensor,
               l3c: Tensor, lam1, lam2, cubic: bool,
               groups: Optional[Tensor]) -> None:

@@ -36,8 +36,11 @@ _I = ctypes.c_int
 # name -> (restype, argtypes) of every C entry point
 _SIGNATURES = {
     "repro_error_string": (ctypes.c_char_p, [_I]),
-    "repro_cox_coord_scratch_floats": (ctypes.c_longlong, [_I, _I]),
-    "repro_cox_coord": (_I, [_P, _P, _P, _P, _I, _I, _P, _P, _P]),
+    "repro_cox_coord_scratch_floats": (ctypes.c_longlong, [_I, _I, _I]),
+    "repro_cox_coord": (_I, [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P]),
+    "repro_cox_coord_step": (_I, [_P, _P, _P, ctypes.c_longlong, _P, _P, _I,
+                                  _I, _P, _P, _I, ctypes.c_float, _P, _P,
+                                  _P, _P, _P]),
     "repro_lipschitz_scratch_bytes": (ctypes.c_longlong, [_I, _I, _I]),
     "repro_lipschitz": (_I, [_P, _P, _I, _I, _P, _P, ctypes.c_uint, _P, _P,
                              _P]),
@@ -63,16 +66,17 @@ build_log = ""
 
 class LaunchCounts:
     """Calls that launched each kernel, by kernel name. A wrapper adds one
-    after its launch and nowhere else; the serving threads launch from
-    several host threads at once, so every read and write holds a lock."""
+    after its launch and nowhere else (a batched ``cox_coord`` call adds
+    one a candidate coordinate); the serving threads launch from several
+    host threads at once, so every read and write holds a lock."""
 
     def __init__(self):
         self._lock = threading.Lock()
         self._counts: dict = {}
 
-    def add(self, kernel: str) -> None:
+    def add(self, kernel: str, count: int = 1) -> None:
         with self._lock:
-            self._counts[kernel] = self._counts.get(kernel, 0) + 1
+            self._counts[kernel] = self._counts.get(kernel, 0) + count
 
     def read(self, kernels) -> dict:
         with self._lock:

@@ -41,6 +41,26 @@
 //
 // No float atomics: every sum has a fixed order, so a CD trajectory is
 // bitwise reproducible.
+//
+// A candidate axis. Both kernels take blockIdx.y as a candidate c with its
+// own eta row (C, n), its own column (rows ld_x floats apart), its own
+// scratch slice and its own ticket, tickets[c]; delta and D are shared.
+// The tickets are a buffer of their own: the slices move with n, order and
+// C, and a ticket among them would meet an earlier call's aggregates. A
+// candidate's terms never read another's, so each of C candidates gets the
+// bits that a call on its eta and column alone gives; C = 1 is the
+// single-coordinate launch. Beam search finetunes all candidate supports
+// of one size as one coordinate descent over this axis.
+//
+// The fused step (repro_cox_coord_step, order 2, the batched finetune's
+// entry): each candidate's ticket holder also takes the quadratic
+// surrogate step of core/surrogate.py::quad_min,
+//   step = -(g + 2 lam2 beta[c, j]) / max(curv[c, j], 1e-12),
+// adds it to beta[c, j] and writes step[c]. The step's eta update,
+// eta[c] += x_prev[c] * step[c], is folded into the next step's
+// coord_tile_aggregates, which writes eta back; so a step stays two
+// launches, and a sweep needs no host read. The caller makes the last
+// step's update itself.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -52,7 +72,6 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kItems = 4;
 constexpr int kTile = kThreads * kItems;  // samples per block
-constexpr int kHeaderFloats = 4;          // the ticket, padded to 16 bytes
 
 // Shared-memory slot of tile element j: thread t reads its kItems contiguous
 // elements t * kItems + q; one pad word every 32 keeps those reads off a
@@ -67,10 +86,20 @@ struct Scratch {
   float* partials;  // (nb, 3)
 };
 
-__device__ __forceinline__ Scratch carve(float* scratch, int k, int nb) {
+// Floats of scratch a candidate takes.
+__host__ __device__ __forceinline__ long long candidate_floats(int k,
+                                                               int nb) {
+  return static_cast<long long>(k + 4) * nb;
+}
+
+// Candidate blockIdx.y's ticket and slice of the scratch.
+__device__ __forceinline__ Scratch carve(float* scratch,
+                                         unsigned int* tickets, int k,
+                                         int nb) {
+  scratch += blockIdx.y * candidate_floats(k, nb);
   Scratch s;
-  s.ticket = reinterpret_cast<unsigned int*>(scratch);
-  s.tile_max = scratch + kHeaderFloats;
+  s.ticket = tickets + blockIdx.y;
+  s.tile_max = scratch;
   s.tile_tot = s.tile_max + nb;
   s.partials = s.tile_tot + static_cast<size_t>(k) * nb;
   return s;
@@ -94,21 +123,42 @@ __device__ __forceinline__ float block_max_all(float v) {
   return result;
 }
 
+// A pending step, applied by the aggregates before they read eta:
+// eta[c] += x_prev[c] * step[c] (x_prev null: none pending).
+struct Pending {
+  const float* x_prev;  // rows ld_x floats apart, as x
+  const float* step;    // (C,)
+};
+
 template <int ORDER>
 __global__ void __launch_bounds__(kThreads)
-coord_tile_aggregates(const float* __restrict__ eta,
-                      const float* __restrict__ x, int n, int nb,
-                      float* __restrict__ scratch) {
+coord_tile_aggregates(float* __restrict__ eta, const float* __restrict__ x,
+                      long long ld_x, Pending pend, int n, int nb,
+                      float* __restrict__ scratch,
+                      unsigned int* __restrict__ tickets) {
   constexpr int K = ORDER + 1;
-  const Scratch s = carve(scratch, K, nb);
+  const Scratch s = carve(scratch, tickets, K, nb);
+  const int c = blockIdx.y;
+  eta += static_cast<long long>(c) * n;
+  x += c * ld_x;
+  const float* xp = pend.x_prev ? pend.x_prev + c * ld_x : nullptr;
+  const float sp = xp ? pend.step[c] : 0.f;
   const int base = blockIdx.x * kTile;
   float e[kItems], xv[kItems];
   float local = -INFINITY;
 #pragma unroll
   for (int q = 0; q < kItems; ++q) {
     const int i = base + q * kThreads + threadIdx.x;
-    e[q] = i < n ? eta[i] : -INFINITY;
-    xv[q] = i < n ? x[i] : 0.f;
+    e[q] = -INFINITY;
+    xv[q] = 0.f;
+    if (i < n) {
+      e[q] = eta[i];
+      xv[q] = x[i];
+      if (xp) {
+        e[q] = fmaf(xp[i], sp, e[q]);
+        eta[i] = e[q];
+      }
+    }
     local = fmaxf(local, e[q]);
   }
   const float mb = block_max_all(local);  // finite: the tile holds a sample
@@ -145,14 +195,28 @@ __device__ __forceinline__ void merge(float& m, float (&o)[K], float m2,
   m = mm;
 }
 
+// The fused step's coefficients: beta and curv at column j of each
+// candidate (rows ld floats apart); beta is null where no step is taken.
+struct Step {
+  float* beta;
+  const float* curv;
+  int ld;
+  float two_lam2;  // float32(2 lam2), as torch rounds the scalar
+  float* step;     // (C,)
+};
+
 template <int ORDER>
 __global__ void __launch_bounds__(kThreads)
 coord_terms(const float* __restrict__ eta, const float* __restrict__ x,
-            const float* __restrict__ delta,
+            long long ld_x, const float* __restrict__ delta,
             const float* __restrict__ group_events, int n, int nb,
-            float* __restrict__ scratch, float* __restrict__ out) {
+            float* __restrict__ scratch, unsigned int* __restrict__ tickets,
+            float* __restrict__ out, Step step) {
   constexpr int K = ORDER + 1;
-  const Scratch s = carve(scratch, K, nb);
+  const Scratch s = carve(scratch, tickets, K, nb);
+  const int c = blockIdx.y;
+  eta += static_cast<long long>(c) * n;
+  x += c * ld_x;
   __shared__ float sw[kSlots];
   __shared__ float sx[kSlots];
   __shared__ float sd[kSlots];
@@ -305,50 +369,90 @@ coord_terms(const float* __restrict__ eta, const float* __restrict__ x,
   repro::block_sum_all<kThreads>(v);
   if (threadIdx.x == 0) {
 #pragma unroll
-    for (int q = 0; q < 3; ++q) out[q] = v[q];
+    for (int q = 0; q < 3; ++q) out[3 * c + q] = v[q];
+    if (step.beta) {
+      // quad_min's operations in torch's order, none fused, so the step
+      // is what the eager step gives from the same g
+      float* b = step.beta + static_cast<long long>(c) * step.ld;
+      const float a = __fadd_rn(v[0], __fmul_rn(step.two_lam2, *b));
+      const float d = __fdiv_rn(-a, fmaxf(step.curv[c * step.ld], 1e-12f));
+      *b = __fadd_rn(*b, d);
+      step.step[c] = d;
+    }
     *s.ticket = 0u;
   }
 }
 
 template <int ORDER>
-int launch(const float* eta, const float* x, const float* delta,
-           const float* group_events, int n, float* scratch, float* out,
+int launch(float* eta, const float* x, long long ld_x, Pending pend,
+           const float* delta, const float* group_events, int n, int c,
+           float* scratch, unsigned int* tickets, float* out, Step step,
            cudaStream_t st) {
   const int nb = (n + kTile - 1) / kTile;
-  coord_tile_aggregates<ORDER><<<nb, kThreads, 0, st>>>(eta, x, n, nb,
-                                                        scratch);
+  const dim3 grid(nb, c);
+  coord_tile_aggregates<ORDER><<<grid, kThreads, 0, st>>>(
+      eta, x, ld_x, pend, n, nb, scratch, tickets);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  coord_terms<ORDER><<<nb, kThreads, 0, st>>>(eta, x, delta, group_events, n,
-                                              nb, scratch, out);
+  coord_terms<ORDER><<<grid, kThreads, 0, st>>>(
+      eta, x, ld_x, delta, group_events, n, nb, scratch, tickets, out, step);
   return static_cast<int>(cudaGetLastError());
 }
+
+bool bad_shape(int n, int c) { return n <= 0 || c <= 0 || c > 65535; }
 
 }  // namespace
 
 extern "C" {
 
-// Floats of scratch that repro_cox_coord needs for n samples. The first
-// word is a ticket that must be zero before the first call; every call
-// leaves it zero.
-long long repro_cox_coord_scratch_floats(int n, int order) {
-  const long long k = order + 1;
-  const long long nb = (n + kTile - 1) / kTile;
-  return kHeaderFloats + nb + k * nb + 3 * nb;
+// Floats of scratch that repro_cox_coord and repro_cox_coord_step need for
+// c candidates of n samples, beside c tickets (unsigned ints) that must be
+// zero before the first call; every call leaves them zero.
+long long repro_cox_coord_scratch_floats(int n, int order, int c) {
+  const int nb = (n + kTile - 1) / kTile;
+  return c * candidate_floats(order + 1, nb);
 }
 
-// out (3,) <- (g, h, c3); c3 is 0 for order 2. group_events[s] is the event
-// count of the tie group starting at s, 0 where no group starts. Two
-// launches on `stream`, no other device work.
+// out (c, 3) <- each candidate's (g, h, c3) from its eta row and column (c
+// rows of n, contiguous); c3 is 0 for order 2. group_events[s] is the
+// event count of the tie group starting at s, 0 where no group starts.
+// Two launches on `stream`, no other device work.
 int repro_cox_coord(const float* eta, const float* x, const float* delta,
-                    const float* group_events, int n, int order,
-                    float* scratch, float* out, void* stream) {
-  if (n <= 0 || order < 2 || order > 3)
+                    const float* group_events, int n, int c, int order,
+                    float* scratch, unsigned int* tickets, float* out,
+                    void* stream) {
+  if (bad_shape(n, c) || order < 2 || order > 3)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  // read only: no step is pending, so the aggregates write no eta
+  float* e = const_cast<float*>(eta);
+  const Pending none{nullptr, nullptr};
+  const Step no_step{nullptr, nullptr, 0, 0.f, nullptr};
   if (order == 2)
-    return launch<2>(eta, x, delta, group_events, n, scratch, out, st);
-  return launch<3>(eta, x, delta, group_events, n, scratch, out, st);
+    return launch<2>(e, x, n, none, delta, group_events, n, c, scratch,
+                     tickets, out, no_step, st);
+  return launch<3>(e, x, n, none, delta, group_events, n, c, scratch, tickets,
+                   out, no_step, st);
+}
+
+// One quadratic-surrogate coordinate step of c candidates: first the
+// pending step's update eta[c] += x_prev[c] * step[c] (none when x_prev is
+// null), then (g, h) of column x into out (c, 3) as repro_cox_coord gives
+// them, then step[c] and beta[c] += step[c] (see the header). x and x_prev
+// are rows ld_x floats apart, beta and curv rows ld_coef floats apart (each
+// pointing at column j). Two launches on `stream`, no other device work.
+int repro_cox_coord_step(float* eta, const float* x, const float* x_prev,
+                         long long ld_x, const float* delta,
+                         const float* group_events, int n, int c,
+                         float* beta, const float* curv, int ld_coef,
+                         float two_lam2, float* step, float* scratch,
+                         unsigned int* tickets, float* out, void* stream) {
+  if (bad_shape(n, c) || ld_x < n || ld_coef < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch<2>(eta, x, ld_x, Pending{x_prev, step}, delta, group_events,
+                   n, c, scratch, tickets, out,
+                   Step{beta, curv, ld_coef, two_lam2, step},
+                   static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

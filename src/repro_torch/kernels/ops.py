@@ -10,7 +10,8 @@ serving threads launch from several host threads) count the calls that
 launched their kernels and nothing else; a call may be several launches
 (every wrapper module states its own in ``KERNELS_PER_CALL``:
 ``cox_coord`` 2, ``revcumsum`` 1 or 2 by layout, ``cox_batch``,
-``lipschitz`` and both curve kernels 1).
+``lipschitz`` and both curve kernels 1). A ``cox_coord`` call over C
+candidates counts C, one a candidate coordinate, in both.
 
 The port has no block autotuner: each kernel picks its own launch shape.
 """
@@ -40,8 +41,8 @@ KERNELS = ("cox_coord", "lipschitz", "survival_curves", "revcumsum",
            "cox_batch", "survival_curves_stratified")
 
 
-def _count(kernel: str, t: Tensor) -> None:
-    _M_DISPATCH.inc(kernel=kernel,
+def _count(kernel: str, t: Tensor, calls: int = 1) -> None:
+    _M_DISPATCH.inc(calls, kernel=kernel,
                     route="cuda" if t.device.type == "cuda" else "plain")
 
 
@@ -72,12 +73,13 @@ def cox_coord_grad_hess(eta: Tensor, x: Tensor, delta: Tensor,
                         risk_start: Tensor,
                         group_events: Optional[Tensor] = None
                         ) -> Tuple[Tensor, Tensor]:
-    """Fused per-coordinate (g, h), exact on tied times. ``group_events``
-    (``group_events``) is made by the call when not given."""
-    _count("cox_coord", eta)
+    """Fused per-coordinate (g, h), exact on tied times; (C,) each given a
+    (C, n) ``eta`` and ``x``. ``group_events`` (``group_events``) is made by
+    the call when not given."""
+    _count("cox_coord", eta, eta.shape[0] if eta.dim() == 2 else 1)
     out = _cox_coord.cox_coord(eta, x, delta, risk_start, order=2,
                                group_events=group_events)
-    return out[0], out[1]
+    return out[..., 0], out[..., 1]
 
 
 def cox_coord_all(eta: Tensor, x: Tensor, delta: Tensor,
@@ -88,6 +90,18 @@ def cox_coord_all(eta: Tensor, x: Tensor, delta: Tensor,
     out = _cox_coord.cox_coord(eta, x, delta, risk_start, order=3,
                                group_events=group_events)
     return out[0], out[1], out[2]
+
+
+def cox_coord_step(eta: Tensor, rows: Tensor, j: int, prev: Optional[int],
+                   beta: Tensor, curv: Tensor, step: Tensor, delta: Tensor,
+                   group_events: Tensor, lam2: float) -> Tensor:
+    """One quadratic-surrogate coordinate step of C candidates in place:
+    the pending update from column ``prev``, (g, h) at column j, and the
+    step into ``beta`` and ``step`` (``cox_coord.cox_coord_step``; on a
+    card only)."""
+    _count("cox_coord", eta, eta.shape[0])
+    return _cox_coord.cox_coord_step(eta, rows, j, prev, beta, curv, step,
+                                     delta, group_events, lam2)
 
 
 def lipschitz_constants(x: Tensor, delta: Tensor, risk_start: Tensor,

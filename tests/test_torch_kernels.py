@@ -113,6 +113,85 @@ def test_ops_cox_coord_entry_points():
         np.testing.assert_allclose(a, b, rtol=2e-5, atol=2e-5)
 
 
+@pytest.mark.parametrize("order", [2, 3])
+def test_cox_coord_candidate_rows_are_single_calls(order):
+    """A (C, n) call's rows are the calls on each row's eta and column."""
+    x, t, delta = make_tied_survival(n=300, p=6, n_times=20, seed=4)
+    td = cox.prepare(x, t, delta, device="cpu")
+    groups = ops.group_events(td.delta, td.risk_start)
+    eta = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (6, 300)).astype(np.float32))
+    got = cox_coord(eta, td.xT, td.delta, td.risk_start, order, groups)
+    assert got.shape == (6, 3)
+    for r in range(6):
+        assert torch.equal(got[r], cox_coord(eta[r], td.xT[r], td.delta,
+                                             td.risk_start, order, groups))
+    with pytest.raises(ValueError):
+        cox_coord(eta, td.xT[:5], td.delta, td.risk_start, order, groups)
+
+
+def _step_data(kind):
+    x, t, delta = make_tied_survival(n=200, p=12, n_times=15, seed=8)
+    if kind == "tie_free":
+        t = t + np.arange(200, dtype=np.float32) * 1e-3
+    td = cox.prepare(x, t, delta, device="cpu")
+    tie_free = torch.equal(td.risk_start, torch.arange(200, dtype=torch.int32))
+    assert tie_free == (kind == "tie_free")
+    return td
+
+
+@pytest.mark.parametrize("kind", ["tied", "tie_free"])
+def test_coord_step_is_each_candidates_eager_step(kind):
+    """``solvers.coord_step`` over C candidates on the CPU (the fused
+    step's plain version) against the eager finetune step of each
+    candidate alone (``finetune``'s loop before batching), bit for bit:
+    the pending eta update, (g, h) and the surrogate step."""
+    from repro_torch.core import solvers, surrogate
+
+    td = _step_data(kind)
+    groups = ops.group_events(td.delta, td.risk_start)
+    cols = torch.tensor([[0, 4, 9], [2, 4, 11], [1, 3, 5]])
+    rows, lam2 = td.xT[cols], 1e-3
+    curv = cox.lipschitz_constants(td)[0][cols] + 2.0 * lam2
+    eta, beta = torch.zeros(3, 200), torch.zeros(3, 3)
+    step = torch.zeros(3)
+    want_eta, want_beta = torch.zeros(3, 200), torch.zeros(3, 3)
+    prev = None
+    for _ in range(3):
+        for j in range(3):
+            solvers.coord_step(td, eta, rows, j, prev, beta, curv, step,
+                               groups, lam2)
+            prev = j
+            for r in range(3):
+                g, _ = solvers.coord_grad_hess(td, want_eta[r], rows[r, j],
+                                               groups)
+                d = surrogate.quad_min(g + 2.0 * lam2 * want_beta[r, j],
+                                       curv[r, j])
+                want_beta[r, j].add_(d)
+                want_eta[r].addcmul_(rows[r, j], d)
+                assert torch.equal(step[r], d)
+            assert torch.equal(beta, want_beta)
+    eta.addcmul_(rows[:, prev], step[:, None])
+    assert torch.equal(eta, want_eta)
+
+
+def test_cox_coord_step_validates_and_needs_a_card():
+    n, c, s = 40, 4, 2
+    eta, rows = torch.zeros(c, n), torch.ones(c, s, n)
+    beta, curv, step = torch.zeros(c, s), torch.ones(c, s), torch.zeros(c)
+    d = torch.ones(n)
+    with pytest.raises(ValueError, match="card"):
+        ops.cox_coord_step(eta, rows, 1, 0, beta, curv, step, d, d, 1e-3)
+    with pytest.raises(ValueError, match="columns"):
+        ops.cox_coord_step(eta, rows, s, 0, beta, curv, step, d, d, 1e-3)
+    with pytest.raises(ValueError, match="shape"):
+        ops.cox_coord_step(eta, rows, 0, None, beta[:, :1], curv, step, d,
+                           d, 1e-3)
+    with pytest.raises(ValueError, match="shape"):
+        ops.cox_coord_step(eta[:, :-1], rows, 0, None, beta, curv, step, d,
+                           d, 1e-3)
+
+
 def _tied_layout(layout, seed):
     """make_tied_survival data (n=300, p=5) in float64, with its times as
     drawn ("grid"), with the latest quarter of the rows in one tie group

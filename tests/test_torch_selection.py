@@ -243,6 +243,34 @@ def test_finetune_matches_jax(reference, use_kernel):
     assert got[0].shape == (5,) and float(got[0][3:].abs().sum()) == 0.0
 
 
+@pytest.mark.parametrize("given_l2", [False, True], ids=["lipschitz", "l2c"])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64],
+                         ids=["float32", "float64"])
+@pytest.mark.parametrize("kind", ["appendix_c", "tied"])
+def test_finetune_batch_matches_per_candidate_finetunes(kind, dtype,
+                                                        given_l2):
+    """Several supports of one size finetuned at once (the kernels' entry,
+    their plain versions here) against each finetuned alone on the plain
+    route: within 1e-8 in float64 and float32's 2e-5 (the two take L2 and
+    (g, h) in different summation orders)."""
+    x, t, delta = _arrays(kind)
+    data = cox.prepare(x.astype(dtype), t, delta, device="cpu")
+    supports = np.array([[3, 7, 10], [0, 7, 12], [1, 2, 30], [5, 6, 7]])
+    l2c = cox.lipschitz_constants(data)[0] if given_l2 else None
+    betas, etas, losses = beam.finetune_batch(data, supports, 1e-3,
+                                              n_sweeps=20, l2c=l2c)
+    assert betas.shape == (4, 3) and etas.shape == (4, data.n)
+    assert losses.shape == (4,)
+    rtol = RTOL if dtype == np.float64 else 2e-5
+    for r, supp in enumerate(supports):
+        beta, eta, loss = beam.finetune(data, supp, np.ones(3), 1e-3, 3,
+                                        n_sweeps=20, use_kernel=False)
+        np.testing.assert_allclose(losses[r].item(), loss.item(), rtol=rtol)
+        for g, w in ((betas[r], beta), (etas[r], eta)):
+            np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=rtol,
+                                       atol=rtol * float(w.abs().max()))
+
+
 def _same_results(got, want):
     assert [s.tolist() for s in got.supports] == \
         [s.tolist() for s in want.supports]

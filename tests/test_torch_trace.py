@@ -318,8 +318,44 @@ def test_finetune_steps_count_the_coordinate_steps(spans):
     finetunes = {r["span_id"]: r for r in recs
                  if r["name"] == "beam.finetune"}
     assert all(r["parent_id"] in finetunes for r in sweeps)
-    assert len(sweeps) == sum(r["attrs"]["n_candidates"]
-                              for r in finetunes.values())
+    # the candidates of a size are finetuned in one batched call
+    assert len(sweeps) == len(finetunes)
+    assert sum(r["attrs"]["candidates"] for r in sweeps) == \
+        sum(r["attrs"]["n_candidates"] for r in finetunes.values())
+
+
+@pytest.mark.parametrize("use_kernel", [True, False])
+def test_finetune_sweeps_carry_candidates_and_their_steps(spans,
+                                                          use_kernel):
+    """Each ``finetune.sweeps`` span carries its ``candidates`` C and its
+    ``steps`` C x size x sweeps: one span a support size through the
+    kernels' entry (every candidate at once), one a candidate on the plain
+    route."""
+    x, t, delta = make_tied_survival(n=120, p=9, seed=3)
+    data = cox.prepare(x, t, delta, device="cpu")
+    res = beam.beam_search(data, k=3, beam_width=2, n_expand=3,
+                           finetune_sweeps=4, use_kernel=use_kernel,
+                           device="cpu")
+    recs = spans.read()
+    tree = _tree(recs)
+    sizes = {r["span_id"]: r["attrs"]["size"] for r in recs
+             if r["name"] == "beam.size"}
+    n_cands = {}
+    for r in recs:
+        if r["name"] == "beam.finetune":
+            n_cands[sizes[r["parent_id"]]] = r["attrs"]["n_candidates"]
+    assert sorted(n_cands) == [1, 2, 3] and n_cands[1] == 3
+    seen = dict.fromkeys(n_cands, 0)
+    for r in recs:
+        if r["name"] != "finetune.sweeps":
+            continue
+        size = sizes[tree[r["parent_id"]]["parent_id"]]
+        c = r["attrs"]["candidates"]
+        assert c == (n_cands[size] if use_kernel else 1)
+        assert r["attrs"]["steps"] == c * size * 4
+        seen[size] += c
+    assert seen == n_cands
+    assert [len(s) for s in res.supports] == [1, 2, 3]
 
 
 def test_a_featurizer_batch_holds_three_mixer_spans_a_layer(spans):
