@@ -2,11 +2,12 @@
 
 The port's own copy of the JAX package's ``configs`` (plain dataclasses,
 the same values), so that the port imports nothing of that package."""
-from .base import SHAPES, ModelConfig, ShapeSpec, TrainConfig  # noqa: F401
+from .base import (SHAPES, ModelConfig, PatternConfig,  # noqa: F401
+                   ShapeSpec, TrainConfig)
 
 from . import (deepseek_67b, gemma3_12b, mamba2_130m, mixtral_8x22b,
-               mixtral_8x7b, qwen1_5_4b, qwen2_5_3b, qwen2_vl_7b,
-               seamless_m4t_large_v2, zamba2_2_7b)
+               mixtral_8x7b, nemotron3_nano_30b_a3b, qwen1_5_4b, qwen2_5_3b,
+               qwen2_vl_7b, seamless_m4t_large_v2, zamba2_2_7b)
 
 REGISTRY = {
     m.CONFIG.name: m.CONFIG
@@ -16,10 +17,17 @@ REGISTRY = {
 }
 
 
+# the port's own architectures, which the JAX package does not have
+PORT_REGISTRY = {m.CONFIG.name: m.CONFIG for m in (nemotron3_nano_30b_a3b,)}
+
+
 def get_config(name: str) -> ModelConfig:
-    if name not in REGISTRY:
-        raise KeyError(f"unknown arch {name!r}; have {sorted(REGISTRY)}")
-    return REGISTRY[name]
+    """An architecture of ``REGISTRY`` or of ``PORT_REGISTRY``."""
+    cfg = REGISTRY.get(name) or PORT_REGISTRY.get(name)
+    if cfg is None:
+        raise KeyError(f"unknown arch {name!r}; have "
+                       f"{sorted(REGISTRY) + sorted(PORT_REGISTRY)}")
+    return cfg
 
 
 def applicable_shapes(cfg: ModelConfig):
@@ -55,4 +63,9 @@ def reduced_config(cfg: ModelConfig) -> ModelConfig:
         kw.update(local_global_ratio=1, local_window=8)
     if cfg.mrope_sections:
         kw.update(mrope_sections=(4, 2, 2))
+    if cfg.family == "pattern":
+        # every kind of layer once; d_inner (6 x 16) is not expand x d_model
+        kw.update(layer_pattern="MEM*E", n_layers=5, n_heads=8, n_experts=8,
+                  n_experts_per_tok=2, ssm_state=16, ssm_head_dim=16,
+                  ssm_chunk=16, ssm_heads=6, ssm_groups=2, shared_d_ff=256)
     return cfg.scaled(**kw)

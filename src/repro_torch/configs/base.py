@@ -61,6 +61,38 @@ class ModelConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class PatternConfig(ModelConfig):
+    """A stack laid out by ``layer_pattern``, one pre-norm residual layer a
+    character, each one mixer (Nemotron-H's ``hybrid_override_pattern``):
+    ``M`` a Mamba2 mixer of ``ssm_heads`` x ``ssm_head_dim`` channels with
+    ``ssm_groups`` groups of B and C; ``E`` a sparse-expert MLP with a
+    sigmoid router (``n_experts``, ``n_experts_per_tok``, relu^2 experts
+    of width ``d_ff``, one shared expert of ``shared_d_ff``); ``*`` GQA
+    attention alone. The port's own fields, which the JAX package's
+    ``ModelConfig`` lacks: such a config lives in the port's own registry
+    (``configs.PORT_REGISTRY``)."""
+
+    layer_pattern: str = ""
+    ssm_heads: int = 0
+    ssm_groups: int = 1
+    shared_d_ff: int = 0
+    routed_scaling: float = 1.0
+    norm_topk_prob: bool = True
+    router_groups: int = 1          # group-limited routing (n_group,
+    router_topk_groups: int = 1     # topk_group): only one group of all
+
+    def __post_init__(self):
+        super().__post_init__()
+        if len(self.layer_pattern) != self.n_layers \
+                or set(self.layer_pattern) - set("ME*"):
+            raise ValueError(f"layer_pattern {self.layer_pattern!r}: one of "
+                             f"M, E, * for each of {self.n_layers} layers")
+        if (self.router_groups, self.router_topk_groups) != (1, 1):
+            raise ValueError("group-limited routing is not implemented: "
+                             "router_groups and router_topk_groups are 1")
+
+
+@dataclasses.dataclass(frozen=True)
 class ShapeSpec:
     name: str
     seq_len: int

@@ -1,7 +1,10 @@
 """Model dispatch: one ``nn.Module`` over every backbone family of the
 pool: ``dense``, ``moe`` and ``vlm`` (decoder-only transformers), ``ssm``
 (Mamba2 stacks), ``hybrid`` (Zamba2: Mamba2 groups with one shared
-transformer block) and ``encdec`` (encoder-decoder with cross attention).
+transformer block), ``encdec`` (encoder-decoder with cross attention) and
+``pattern`` (Nemotron-H: one mixer a layer, Mamba2, sparse experts or
+attention, as ``PatternConfig.layer_pattern`` lays them out; the port's
+own family, which the JAX package lacks, with no decode cache yet).
 
 The PyTorch port's counterpart of the JAX package's ``models/model.py``.
 The module holds the parameters under the reference's names, one entry per
@@ -35,11 +38,11 @@ from torch.utils import checkpoint as _ckpt
 
 from .. import device as _device
 from ..configs.base import ModelConfig
-from . import layers, pspec, ssm, transformer as tf
+from . import layers, moe, pspec, ssm, transformer as tf
 
 Tensor = torch.Tensor
 
-FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid", "encdec")
+FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid", "encdec", "pattern")
 DECODERS = ("dense", "moe", "vlm")
 CONV_TAIL = 3   # mamba2's conv_width - 1 pre-conv inputs a cache carries
 _META = torch.device("meta")
@@ -131,7 +134,7 @@ class Model(nn.Module):
             (cfg.d_model, cfg.vocab_padded), cfg.d_model ** -0.5, self.dt,
             dev)
         self.layers = nn.ModuleList(
-            [self._init_layer(dev) for _ in range(cfg.n_layers)])
+            [self._init_layer(dev, i) for i in range(cfg.n_layers)])
         self.cox_head: Optional[nn.ParameterDict] = None
         # zamba2's one shared block; the encoder of an encoder-decoder
         self.shared = tf.init_block(cfg, self.dt, dev) \
@@ -146,16 +149,36 @@ class Model(nn.Module):
         if generator is not None:
             self.reset_parameters(generator)
 
-    def _init_layer(self, dev) -> nn.ModuleDict:
+    def _init_layer(self, dev, i: int) -> nn.ModuleDict:
         cfg = self.cfg
         if cfg.family in DECODERS or cfg.family == "encdec":
             return tf.init_block(cfg, self.dt, dev,
                                  cross_attn=cfg.family == "encdec")
+        if cfg.family == "pattern":
+            return self._init_pattern_layer(dev, cfg.layer_pattern[i])
         return nn.ModuleDict({
             "ln": layers.init_rmsnorm(cfg.d_model, self.dt, dev),
             "mamba": ssm.init_mamba2(cfg.d_model, cfg.ssm_state,
                                      cfg.ssm_head_dim, cfg.ssm_expand,
                                      dtype=self.dt, device=dev)})
+
+    def _init_pattern_layer(self, dev, kind: str) -> nn.ModuleDict:
+        """A pre-norm and one mixer: ``mamba``, ``moe`` or ``attn``."""
+        cfg, dt = self.cfg, self.dt
+        if kind == "M":
+            name, mixer = "mamba", ssm.init_mamba2(
+                cfg.d_model, cfg.ssm_state, cfg.ssm_head_dim, dtype=dt,
+                device=dev, n_heads=cfg.ssm_heads, n_groups=cfg.ssm_groups)
+        elif kind == "E":
+            name, mixer = "moe", moe.init_sparse_moe(
+                cfg.d_model, cfg.d_ff, cfg.n_experts, cfg.shared_d_ff, dt,
+                dev)
+        else:
+            name, mixer = "attn", layers.init_attention(
+                cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+                cfg.qkv_bias, dt, dev)
+        return nn.ModuleDict({
+            "ln": layers.init_rmsnorm(cfg.d_model, dt, dev), name: mixer})
 
     @torch.no_grad()
     def reset_parameters(self, gen: torch.Generator) -> None:
@@ -241,7 +264,7 @@ class Model(nn.Module):
             p_l["mamba"], layers.rmsnorm(p_l["ln"], x, cfg.rms_eps),
             d_state=cfg.ssm_state, head_dim=cfg.ssm_head_dim,
             expand=cfg.ssm_expand, chunk=cfg.ssm_chunk,
-            return_state=want_state)
+            return_state=want_state, eps=cfg.rms_eps)
         if want_state:
             y, st = y
             return pspec.constrain(x + y, "dp", None, None), st
@@ -283,6 +306,36 @@ class Model(nn.Module):
                 kvs.append(kv)
         return x, (kvs, states)
 
+    def _pattern_layer(self, kind: str, p_l, x: Tensor) -> Tensor:
+        """x + mixer(norm(x)), the mixer of ``kind`` (M, E or *)."""
+        cfg = self.cfg
+        h = layers.rmsnorm(p_l["ln"], x, cfg.rms_eps)
+        if kind == "M":
+            y = ssm.mamba2_forward(
+                p_l["mamba"], h, d_state=cfg.ssm_state,
+                head_dim=cfg.ssm_head_dim, chunk=cfg.ssm_chunk,
+                n_heads=cfg.ssm_heads, n_groups=cfg.ssm_groups,
+                eps=cfg.rms_eps)
+        elif kind == "E":
+            y = moe.sparse_moe(p_l["moe"], h, cfg.n_experts_per_tok,
+                               cfg.routed_scaling, cfg.norm_topk_prob)
+        else:
+            y = tf.attention_mixer(p_l["attn"], cfg, h)
+        return x + y
+
+    def _pattern_stack(self, x, remat):
+        for kind, p_l in zip(self.cfg.layer_pattern, self.layers):
+            x = _maybe_remat(functools.partial(self._pattern_layer, kind,
+                                               p_l), remat)(x)
+        return x
+
+    def _no_cache(self) -> None:
+        if self.cfg.family == "pattern":
+            raise NotImplementedError(
+                f"{self.cfg.name}: the pattern family has no decode cache "
+                "yet (SSM state beside KV); hidden_states, loss_lm and "
+                "risk_scores run it")
+
     def _encoder(self, src: Tensor, remat) -> Tensor:
         cfg = self.cfg
         h = src.to(self.dt)
@@ -319,6 +372,9 @@ class Model(nn.Module):
         if cfg.family == "ssm":
             x, states = self._ssm_stack(x, want_cache, remat)
             return x, aux, states
+        if cfg.family == "pattern":
+            # the sigmoid router has no aux loss
+            return self._pattern_stack(x, remat), aux, None
         x, parts = self._hybrid_stack(x, self._positions(batch, x),
                                       want_cache, remat)
         return x, aux, parts
@@ -373,6 +429,7 @@ class Model(nn.Module):
         (``max_len`` when 0): the reference's ``init_cache_specs`` shapes.
         A model whose parameters are DTensors gets its cache on their mesh,
         placed by ``launch.sharding.cache_spec``."""
+        self._no_cache()
         cache = self._cache(batch, max_len, src_len or max_len, self.device)
         if isinstance(self.embed, DTensor):
             from ..launch import sharding
@@ -413,6 +470,7 @@ class Model(nn.Module):
         """The decode cache of ``init_cache(batch, max_len)`` on the meta
         device: the reference's ``init_cache_specs`` shapes and dtypes (an
         encoder-decoder's source as long as ``max_len``)."""
+        self._no_cache()
         return self._cache(batch, max_len, self._src_len(max_len), _META)
 
     def _conv_spec(self, batch: int) -> Tensor:
@@ -469,6 +527,7 @@ class Model(nn.Module):
         ``max_len``: cache capacity (room for decode); S + 128 when 0, never
         less than S. A sliding-window cache holds min(capacity, window)
         slots, whatever the prompt's length."""
+        self._no_cache()
         cfg = self.cfg
         x, _, parts = self._stack(batch, False, want_cache=True)
         hidden = layers.rmsnorm(self.final_norm, x, cfg.rms_eps)
@@ -504,6 +563,7 @@ class Model(nn.Module):
         """One token for every sequence. tokens: (B, 1). Writes the cache
         in place and returns (logits (B, V_pad), the cache with length + 1);
         the cache passed in is spent."""
+        self._no_cache()
         cfg = self.cfg
         x = self._scale_embeds(self._lookup(tokens))
         cur = cache.length
@@ -523,7 +583,7 @@ class Model(nn.Module):
                     p_l["mamba"], layers.rmsnorm(p_l["ln"], x, cfg.rms_eps),
                     ssm.SSMState(conv=cache.conv[l], ssm=cache.state[l]),
                     d_state=cfg.ssm_state, head_dim=cfg.ssm_head_dim,
-                    expand=cfg.ssm_expand)
+                    expand=cfg.ssm_expand, eps=cfg.rms_eps)
                 x = x + y
                 cache.conv[l].copy_(st.conv)
                 cache.state[l].copy_(st.ssm)

@@ -15,6 +15,13 @@ off: an index write cannot drop an out-of-bounds row as the reference's
 ``mode="drop"`` scatter does. ``moe_ffn`` is ``route`` then ``dispatch``,
 so that a check can hold the experts' numerics at given routes. On
 DTensors each step runs on local shards (``_moe_on_mesh``).
+
+``sparse_moe`` is Nemotron-H's layer, the port's own: a sigmoid router
+whose choice adds a correction bias and whose weights (the plain scores
+of the chosen) are normalised and scaled, no aux loss; every (token,
+choice) pair dispatched, none dropped, over the pairs sorted by expert,
+through one grouped GEMM an expert projection (``F.grouped_mm``); relu^2
+experts without a gate; one shared expert on every token.
 """
 from __future__ import annotations
 
@@ -26,8 +33,9 @@ import torch.nn.functional as F
 from torch import nn
 from torch.distributed.tensor import DTensor, Partial, Replicate
 
+from ..obs import trace
 from . import pspec
-from .layers import normal
+from .layers import const, normal
 
 Tensor = torch.Tensor
 
@@ -155,3 +163,94 @@ def _moe_on_mesh(params, x: Tensor, k: int, capacity_factor: float):
     aux = pspec.on_shards(functools.partial(_aux, e=e), [whole, whole],
                           [on(())], probs, topi)
     return out, aux
+
+
+# ---------------------------------------------------------------------------
+# Nemotron-H: sigmoid router, no drops, relu^2 experts, a shared expert
+# ---------------------------------------------------------------------------
+
+def init_sparse_moe(d_model: int, d_ff: int, n_experts: int, shared_d_ff: int,
+                    dtype=torch.bfloat16, device="cuda") -> nn.ParameterDict:
+    s = d_model ** -0.5
+    return nn.ParameterDict({
+        "router": normal((d_model, n_experts), s, torch.float32, device),
+        # the choice's correction bias (``e_score_correction_bias``)
+        "router_bias": const(torch.zeros(n_experts), device),
+        "w_up": normal((n_experts, d_model, d_ff), s, dtype, device),
+        "w_down": normal((n_experts, d_ff, d_model), d_ff ** -0.5, dtype,
+                         device),
+        "shared_up": normal((d_model, shared_d_ff), s, dtype, device),
+        "shared_down": normal((shared_d_ff, d_model), shared_d_ff ** -0.5,
+                              dtype, device),
+    })
+
+
+def route_sigmoid(params: Mapping[str, Tensor], x: Tensor, k: int,
+                  scaling: float = 1.0, norm_topk_prob: bool = True):
+    """The sigmoid router: (weights (T, k) float32, experts (T, k)) for the
+    T = B * S tokens of x (B, S, D). The top k of score + bias choose; the
+    chosen plain scores, over their sum when ``norm_topk_prob``, times
+    ``scaling``, weigh."""
+    xt = x.reshape(-1, x.shape[-1])
+    scores = torch.sigmoid(xt.float() @ params["router"])
+    topi = torch.topk(scores + params["router_bias"], k, dim=-1).indices
+    topv = scores.gather(1, topi)
+    if norm_topk_prob:
+        topv = topv / (topv.sum(dim=-1, keepdim=True) + 1e-20)
+    return topv * scaling, topi
+
+
+def _relu2(h: Tensor) -> Tensor:
+    return torch.square(torch.relu(h))
+
+
+def expert_load(topi: Tensor, n_experts: int) -> Tensor:
+    """The (token, choice) pairs each expert takes, (E,), with no host
+    read (``torch.bincount`` reads its input's largest value on the host
+    first)."""
+    flat = topi.reshape(-1)
+    return torch.zeros(n_experts, dtype=flat.dtype, device=flat.device) \
+        .index_add_(0, flat, torch.ones_like(flat))
+
+
+def sorted_experts(x: Tensor, topv: Tensor, topi: Tensor, load: Tensor,
+                   w_up: Tensor, w_down: Tensor) -> Tensor:
+    """Every (token, choice) pair through its relu^2 expert, none dropped:
+    x (T, D), topv and topi (T, k), ``expert_load(topi)`` -> the sum over
+    k of weight x expert output (T, D), float32. The pairs are sorted by
+    expert (stable, so by token within one), gathered, run through one
+    grouped GEMM an expert projection over the experts' row ranges (no
+    host read), put back in pair order and summed over the choices in a
+    fixed order."""
+    t, k = topi.shape
+    order = torch.argsort(topi.reshape(t * k), stable=True)
+    ends = torch.cumsum(load, 0, dtype=torch.int32)
+    xs = x[order // k]                                          # (T k, D)
+    h = _relu2(F.grouped_mm(xs, w_up, offs=ends))
+    ys = F.grouped_mm(h, w_down, offs=ends)                     # (T k, D)
+    back = torch.empty_like(ys)
+    back[order] = ys
+    return (back.reshape(t, k, -1).float() * topv[..., None]).sum(dim=1)
+
+
+def sparse_moe(params: Mapping[str, Tensor], x: Tensor, k: int,
+               scaling: float = 1.0, norm_topk_prob: bool = True) -> Tensor:
+    """x: (B, S, D), pre-normed -> the routed experts' weighted sum plus
+    the shared expert, (B, S, D) in x's dtype. Spans with the card's time:
+    ``moe.route`` (attributes ``tokens`` and ``max_load``, the most pairs
+    one expert took, a card tensor read when the span is written out),
+    ``moe.experts`` (the sort, the grouped GEMMs, the combine) and
+    ``moe.shared``."""
+    b, s, d = x.shape
+    xt = x.reshape(b * s, d)
+    with trace.span("moe.route", device_time=True, tokens=b * s) as sp:
+        topv, topi = route_sigmoid(params, x, k, scaling, norm_topk_prob)
+        load = expert_load(topi, params["w_up"].shape[0])
+        sp.set(max_load=load.max())
+    with trace.span("moe.experts", device_time=True):
+        routed = sorted_experts(xt, topv, topi, load, params["w_up"],
+                                params["w_down"])
+    with trace.span("moe.shared", device_time=True):
+        shared = _relu2(xt @ params["shared_up"]) @ params["shared_down"]
+        out = (routed + shared.float()).to(x.dtype)
+    return out.reshape(b, s, d)

@@ -30,10 +30,13 @@ Tensor = torch.Tensor
 
 def init_mamba2(d_model: int, d_state: int, head_dim: int = 64,
                 expand: int = 2, conv_width: int = 4, dtype=torch.bfloat16,
-                device="cuda") -> nn.ParameterDict:
-    d_inner = expand * d_model
+                device="cuda", n_heads: int = 0,
+                n_groups: int = 1) -> nn.ParameterDict:
+    """A Mamba2 mixer of d_inner = expand x d_model channels, or, given
+    ``n_heads``, of n_heads x head_dim (Nemotron-H), with ``n_groups``
+    groups of B and C."""
+    d_inner = _inner(d_model, head_dim, expand, n_heads)
     n_heads = d_inner // head_dim
-    n_groups = 1
     s = d_model ** -0.5
     d_conv = d_inner + 2 * n_groups * d_state
     f32 = torch.float32
@@ -50,6 +53,11 @@ def init_mamba2(d_model: int, d_state: int, head_dim: int = 64,
         "norm_scale": const(torch.ones(d_inner, dtype=dtype), device),
         "w_out": normal((d_inner, d_model), d_inner ** -0.5, dtype, device),
     })
+
+
+def _inner(d_model: int, head_dim: int, expand: int, n_heads: int) -> int:
+    """Channels of the mixer: n_heads x head_dim, else expand x d_model."""
+    return n_heads * head_dim if n_heads else expand * d_model
 
 
 class SSMState(NamedTuple):
@@ -82,36 +90,40 @@ def _causal_conv(xbc: Tensor, w: Tensor, b: Tensor) -> Tensor:
 
 def mamba2_forward(params, x: Tensor, *, d_state: int, head_dim: int = 64,
                    expand: int = 2, chunk: int = 256,
-                   return_state: bool = False):
+                   return_state: bool = False, n_heads: int = 0,
+                   n_groups: int = 1, eps: float = 1e-6):
     """x: (B, S, D) -> y: (B, S, D), and with ``return_state`` the final
     ``SSMState``: the last conv_width - 1 pre-conv inputs (front-padded
-    with zeros when S is shorter) and the recurrent state. Spans with the
-    card's time: ``ssm.in`` (the input projection, the conv, dt and A),
-    ``ssm.scan`` (the SSD and the skip term) and ``ssm.out`` (the gated
-    norm and the output projection)."""
+    with zeros when S is shorter) and the recurrent state. d_inner as
+    ``init_mamba2`` sets it; head h reads B and C of group h // (H / G);
+    the gated norm is taken per group of d_inner / G channels with
+    ``eps``. Spans with the card's time: ``ssm.in`` (the input projection,
+    the conv, dt and A), ``ssm.scan`` (the SSD and the skip term) and
+    ``ssm.out`` (the gated norm and the output projection)."""
     b, s, d_model = x.shape
-    d_inner = expand * d_model
+    d_inner = _inner(d_model, head_dim, expand, n_heads)
     n_heads = d_inner // head_dim
+    gn = n_groups * d_state
     with trace.span("ssm.in", device_time=True):
-        # jnp.split's cut indices [d_inner, 2 d_inner + 2 N] as slices
+        # jnp.split's cut indices [d_inner, 2 d_inner + 2 G N] as slices
         proj = x @ params["w_in"]
         z = proj[..., :d_inner]
-        xbc_in = proj[..., d_inner:2 * d_inner + 2 * d_state]
-        dt = proj[..., 2 * d_inner + 2 * d_state:]
+        xbc_in = proj[..., d_inner:2 * d_inner + 2 * gn]
+        dt = proj[..., 2 * d_inner + 2 * gn:]
         xbc = _causal_conv(xbc_in, params["conv_w"], params["conv_b"])
         xs = xbc[..., :d_inner]
-        bb = xbc[..., d_inner:d_inner + d_state]
-        cc = xbc[..., d_inner + d_state:]
+        bb = xbc[..., d_inner:d_inner + gn]
+        cc = xbc[..., d_inner + gn:]
         dt = F.softplus(dt.float() + params["dt_bias"])           # (B,S,H)
         a = -torch.exp(params["a_log"])                            # (H,)
 
     with trace.span("ssm.scan", device_time=True):
         xh = xs.reshape(b, s, n_heads, head_dim)
-        y, st = _ssd(xh, dt, a, bb, cc, chunk)
+        y, st = _ssd_groups(xh, dt, a, bb, cc, chunk, n_groups)
         y = y + params["d_skip"][None, None, :, None] * xh.float()
         y = y.reshape(b, s, d_inner).to(x.dtype)
     with trace.span("ssm.out", device_time=True):
-        out = _gated_out(params, y, z, x.dtype)
+        out = _gated_out(params, y, z, x.dtype, n_groups, eps)
     if not return_state:
         return out
     return out, SSMState(conv=_conv_tail(xbc_in, params["conv_w"].shape[0]
@@ -129,14 +141,33 @@ def _conv_tail(xbc_in: Tensor, tail: int) -> Tensor:
     return F.pad(xbc_in, (0, 0, max(0, tail - s), 0))[:, -tail:, :]
 
 
-def _gated_out(params, y: Tensor, z: Tensor, dtype) -> Tensor:
-    """The gated RMSNorm of mamba2, norm(y * silu(z)) rounded before the
-    scale, then the output projection."""
+def _gated_out(params, y: Tensor, z: Tensor, dtype, n_groups: int = 1,
+               eps: float = 1e-6) -> Tensor:
+    """The gated RMSNorm of mamba2, norm(y * silu(z)) over each of
+    ``n_groups`` groups of channels, rounded before the scale, then the
+    output projection."""
     g = y * F.silu(z)
     g32 = g.float()
+    shape = g32.shape
+    if n_groups > 1:
+        g32 = g32.reshape(*shape[:-1], n_groups, shape[-1] // n_groups)
     var = torch.mean(g32 * g32, dim=-1, keepdim=True)
-    g = (g32 * torch.rsqrt(var + 1e-6)).to(dtype) * params["norm_scale"]
+    g = (g32 * torch.rsqrt(var + eps)).reshape(shape).to(dtype) \
+        * params["norm_scale"]
     return g @ params["w_out"]
+
+
+def _ssd_groups(xh: Tensor, dt: Tensor, a: Tensor, bb: Tensor, cc: Tensor,
+                chunk: int, n_groups: int):
+    """``_ssd`` with B and C in ``n_groups`` groups (bb, cc: (B, S, G N));
+    one group keeps ``_ssd``'s operations."""
+    if n_groups == 1:
+        return _ssd(xh, dt, a, bb, cc, chunk)
+    if isinstance(xh, DTensor):
+        raise NotImplementedError("grouped B and C on a mesh")
+    b, s = bb.shape[:2]
+    return _ssd_chunked_grouped(xh, dt, a, bb.reshape(b, s, n_groups, -1),
+                                cc.reshape(b, s, n_groups, -1), chunk)
 
 
 def _ssd(xh: Tensor, dt: Tensor, a: Tensor, bb: Tensor, cc: Tensor,
@@ -211,10 +242,58 @@ def _ssd_chunked(xh: Tensor, dt: Tensor, a: Tensor, bb: Tensor,
     return (y_intra + y_inter).reshape(b, nc * q, h, hd)[:, :s], st
 
 
+def _ssd_chunked_grouped(xh: Tensor, dt: Tensor, a: Tensor, bb: Tensor,
+                         cc: Tensor, chunk: int):
+    """``_ssd_chunked`` with bb, cc (B, S, G, N): head h reads group
+    h // (H / G), so the heads are laid out (G, H / G) beside their
+    group's B and C, and every group runs in the same passes."""
+    b, s, h, hd = xh.shape
+    g, n = bb.shape[2:]
+    q = chunk
+    nc = -(-s // q)
+    pad = nc * q - s
+    if pad:
+        xh = F.pad(xh, (0, 0, 0, 0, 0, pad))
+        dt = F.pad(dt, (0, 0, 0, pad))
+        bb = F.pad(bb, (0, 0, 0, 0, 0, pad))
+        cc = F.pad(cc, (0, 0, 0, 0, 0, pad))
+    xc = xh.reshape(b, nc, q, g, h // g, hd).float()
+    dtc = dt.reshape(b, nc, q, g, h // g)
+    bc = bb.reshape(b, nc, q, g, n).float()
+    ccx = cc.reshape(b, nc, q, g, n).float()
+
+    cum = torch.cumsum(dtc * a.reshape(g, h // g), dim=2)   # (B,nc,q,G,J)
+    total = cum[:, :, -1:]
+    idx = torch.arange(q, device=xh.device)
+    causal = (idx[:, None] >= idx[None, :])[:, :, None, None]
+    dec = torch.exp(torch.clamp(cum[:, :, :, None] - cum[:, :, None],
+                                -60.0, 0.0))             # (B,nc,q,q,G,J)
+    cb = torch.einsum("bcqgn,bcsgn->bcqsg", ccx, bc)
+    w_ = cb[..., None] * dec * dtc[:, :, None] * causal
+    y_intra = torch.einsum("bcqsgj,bcsgjd->bcqgjd", w_, xc)
+
+    decq = torch.exp(torch.clamp(total - cum, -60.0, 0.0))
+    sin = torch.einsum("bcqgj,bcqgjd,bcqgn->bcgjdn", decq * dtc, xc, bc)
+    chunk_decay = torch.exp(torch.clamp(total[:, :, 0], min=-60.0))
+    st = torch.zeros(b, g, h // g, hd, n, dtype=torch.float32,
+                     device=xh.device)
+    st_in = []
+    for c in range(nc):
+        st_in.append(st)
+        st = st * chunk_decay[:, c, :, :, None, None] + sin[:, c]
+    st_in = torch.stack(st_in, dim=1)                   # (B,nc,G,J,hd,N)
+    y_inter = torch.einsum("bcqgn,bcqgj,bcgjdn->bcqgjd", ccx,
+                           torch.exp(torch.clamp(cum, -60.0, 0.0)), st_in)
+    y = (y_intra + y_inter).reshape(b, nc * q, h, hd)[:, :s]
+    return y, st.reshape(b, h, hd, n)
+
+
 def mamba2_decode_step(params, x: Tensor, state: SSMState, *, d_state: int,
-                       head_dim: int = 64, expand: int = 2):
-    """Single-token recurrent step. x: (B, 1, D) -> (y (B, 1, D), the next
-    ``SSMState``); the recurrent state stays float32."""
+                       head_dim: int = 64, expand: int = 2,
+                       eps: float = 1e-6):
+    """Single-token recurrent step (one group of B and C). x: (B, 1, D) ->
+    (y (B, 1, D), the next ``SSMState``); the recurrent state stays
+    float32."""
     b, _, d_model = x.shape
     d_inner = expand * d_model
     n_heads = d_inner // head_dim
@@ -247,5 +326,5 @@ def mamba2_decode_step(params, x: Tensor, state: SSMState, *, d_state: int,
     y = torch.einsum("bhdn,bn->bhd", new_ssm, cvec) \
         + params["d_skip"][None, :, None] * xhh
     y = y.reshape(b, 1, d_inner).to(x.dtype)
-    return _gated_out(params, y, z, x.dtype), \
+    return _gated_out(params, y, z, x.dtype, eps=eps), \
         SSMState(conv=win[:, 1:], ssm=new_ssm)

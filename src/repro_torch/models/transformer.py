@@ -22,6 +22,7 @@ from torch import nn
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from ..configs.base import ModelConfig
+from ..obs import trace
 from . import layers, moe, pspec
 from .layers import apply_rope, decode_attention, flash_attention, mlp, \
     qkv_project, rmsnorm
@@ -144,6 +145,19 @@ def block_forward(p, cfg: ModelConfig, x: Tensor, positions: Tensor,
     m, aux = _ffn(p, cfg, rmsnorm(p["ln2"], x, cfg.rms_eps))
     x = pspec.constrain(x + m, "dp", None, None)
     return x, aux, ((k, v) if want_kv else None)
+
+
+def attention_mixer(p, cfg: ModelConfig, h: Tensor) -> Tensor:
+    """Nemotron-H's attention layer on its pre-normed input h (B, S, D):
+    causal GQA over the whole sequence and the output projection, with no
+    rotary embedding (the Mamba2 layers carry position) and no MLP. Span
+    ``attn.mix`` with the card's time."""
+    b, s, _ = h.shape
+    with trace.span("attn.mix", device_time=True):
+        q, k, v = qkv_project(p, h, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim)
+        o = flash_attention(q, k, v, causal=True, q_chunk=cfg.q_chunk,
+                            kv_chunk=cfg.kv_chunk)
+        return o.reshape(b, s, -1) @ p["wo"]
 
 
 def prefill_cache_kv(k_cache: Tensor, v_cache: Tensor, k: Tensor,

@@ -22,6 +22,7 @@ import atexit
 import collections
 import json
 import os
+import sys
 import threading
 import time
 import weakref
@@ -96,7 +97,12 @@ class JsonlSink:
 
 
 def _jsonable(o):
-    """Last-resort coercion so numpy scalars etc. never kill an emit."""
+    """Last-resort coercion so numpy scalars etc. never kill an emit; a
+    torch tensor of one element (a span attribute left on the card) is
+    read here, when its record is written out."""
+    torch = sys.modules.get("torch")
+    if torch is not None and isinstance(o, torch.Tensor):
+        return o.item()
     try:
         return float(o)
     except (TypeError, ValueError):

@@ -21,6 +21,10 @@ stream at entry and at exit, when CUDA is initialised; the record gets
 ``dev_s``, the card's time between the two, when it is written out (the
 exit event is waited for then, never inside the span).
 
+An attribute may be a one-element tensor on the card (``moe.route``'s
+``max_load``): it is read when the record is written out, never inside
+the span, so it costs the path no host read.
+
 Records are held in memory and written out in batches (``events.
 JsonlSink.defer``): when the sink holds ``events.BUFFER``, on ``flush()``,
 on ``configure(...)`` and at interpreter exit.
