@@ -141,8 +141,9 @@ Phases, each printed as it runs; any failed check raises:
      features from 16 further batches served; the counts, zeroed before
      the featurize and read once the service has stopped, exactly
      cox_coord, lipschitz and revcumsum as phase 9's formulas give them
-     for the refit's spans and survival_curves the engine's calls (the
-     warmed buckets and the service's batches), nothing else; then, as
+     for the refit's spans, survival_curves the engine's calls (the
+     warmed buckets and the service's batches) and ssd_scan one a Mamba2
+     layer of every featurized batch, nothing else; then, as
      checks whose launches are not counted, each served answer equal to
      direct ``engine.score`` calls and to exp(clip(f beta, -30, 30)) within
      DEEP_RISK_RTOL, the refit's kernel route against its plain route on
@@ -165,7 +166,8 @@ Phases, each printed as it runs; any failed check raises:
      loss (the last below the first), one profiled step's idle share and
      top kernels; the counts, zeroed before the run, nothing during
      training and exactly cox_coord, lipschitz and revcumsum as phase 9's
-     formulas give them for the refit; the artifact rolled out through
+     formulas give them for the refit and ssd_scan one a Mamba2 layer of
+     each held-out batch featurized; the artifact rolled out through
      ``ModelRegistry`` into ``RiskService`` and the held-out rows served
      (survival_curves the engine's calls, each answer equal to direct
      ``engine.score``); both held-out c-indexes above 0.5. Then, as checks:
@@ -199,8 +201,9 @@ Phases, each printed as it runs; any failed check raises:
      variant (n_experts=0) at both prompts and every other architecture;
      mixtral's MoE at 2 layers against its float32 twin teacher-forced to
      the tokens and the expert routes (MOE_TWIN_RTOL); qwen2-vl's prefill
-     from embeddings with 3-D M-RoPE positions. No kernel launches on this
-     path: its counts, zeroed before it, are read as 0 after it.
+     from embeddings with 3-D M-RoPE positions. Its counts, zeroed before
+     it and read after it: ssd_scan alone (zamba2's bfloat16 full-sequence
+     forwards, a multiple of its 54 Mamba2 layers), every other kernel 0.
   15. the entry points and the tools, last: the five twins of the
      reference's examples (``examples_torch/``) on the card at the
      reference's sizes, through their ``main`` as a user runs them:
@@ -256,7 +259,11 @@ versions, and every kernel at the shapes phases 12 and 13 give it:
 revcumsum on the (32,768, 768) and (128, 768) refit panels and at (128,
 256), cox_coord at n = 32,768 and 128, lipschitz at (32,768 or 128,
 1..8) and (32,768 or 128, 768), survival_curves at g = 64 for every
-served bucket b = 1..64. Kernel launch counts are zeroed just before each
+served bucket b = 1..64, and ssd_scan against the eager SSD at both
+featurize cells' shapes (mamba2-130m's 128 x 512 tokens of 24 heads, a
+Nemotron-H M layer's 4 x 4,096 of 64 heads in 8 groups), a ragged S and
+its other instantiated shapes; phase 8 times it at both cells' shapes
+(the kernels line's "cells"). Kernel launch counts are zeroed just before each
 path (phases 3-5, 5b, 11's two services, 7, 9's two calls, 10, 12, 13,
 14, each example of 15 and 16) and read just after it. The line before
 the last but eight is one JSON object with phase 11's numbers, then one with
@@ -489,6 +496,24 @@ DRYRUN_CELLS = 40
 USEFUL_RANGE = (0.3, 1.5)  # model flops over counted flops, a train cell
 AUTOTUNE_BS = (1, 64, 4_096)   # beside the reference's sweep (256, 1,024)
 
+# the SSD scan (ssd_scan, replaces no TPU kernel) at the featurize cells'
+# shapes, (batch, S, heads, head_dim, groups, d_state, chunk), timed and
+# checked; then a ragged S and the other instantiated shapes, checked
+SSD_CELLS = {"mamba2-featurize-512": (128, 512, 24, 64, 1, 128, 128),
+             "nemotron3-nano-featurize-4k": (4, 4_096, 64, 64, 8, 128, 128)}
+SSD_CHECKS = ((3, 300, 24, 64, 1, 128, 128), (2, 200, 16, 64, 1, 64, 64),
+              (2, 37, 6, 16, 2, 16, 16))
+SSD_ATOL = 1e-4          # y against the eager float32 y (TF32 off) before
+                         # its rounding, beyond the kernel's own rounding to
+                         # bfloat16 (2^-8 |y|, the float32 values straddling
+                         # a rounding edge): sums in another order and float32
+                         # operands split into bfloat16 halves, of max |y|
+SSD_STATE_TOL = 5e-4     # the final state against the eager state, of its
+                         # max: L = cumsum(dt A) reaches |L| ~ 600, where a
+                         # float32 ulp is 6e-5, and exp(L_Q - L_s) carries
+                         # that error in either summation order
+BF16_PEAK = 989e12       # dense bfloat16 tensor-core rate of an H100 SXM
+
 # the TPU kernel each CUDA kernel replaces (its pallas_call), and the path
 # whose launch count the kernels line reports
 # phase 16: the (data, model) mesh. (a) the sharded train step on a (1, 1)
@@ -527,11 +552,14 @@ REPLACES = {
     "revcumsum": "src/repro/kernels/revcumsum.py:55",
     "cox_batch": "src/repro/kernels/cox_batch.py:79",
     "survival_curves_stratified": "src/repro/kernels/survival_curves.py:98",
+    "ssd_scan": "none: the JAX package's SSD is plain jnp "
+                "(src/repro/models/ssm.py::_ssd_chunked)",
 }
 PATH_OF = {"cox_coord": "fit and serve", "lipschitz": "fit and serve",
            "survival_curves": "fit and serve",
            "survival_curves_stratified": "stratified scoring",
-           "revcumsum": "streaming fit", "cox_batch": "streaming fit"}
+           "revcumsum": "streaming fit", "cox_batch": "streaming fit",
+           "ssd_scan": "deep survival"}
 
 
 def log(msg: str) -> None:
@@ -2316,7 +2344,9 @@ def deep_phase() -> dict:
                                   enumerate(candidates, 1)),
         "lipschitz": 1,
         "revcumsum": sum(scored) * (2 * steps + 1) * len(blocks),
-        "survival_curves": path_calls})
+        "survival_curves": path_calls,
+        # one a Mamba2 layer of every featurized batch
+        "ssd_scan": (DEEP_BATCHES + DEEP_SERVE_BATCHES) * cfg.n_layers})
     check(path_calls == len(reg.prewarm_batches) + st["n_batches"],
           f"engine calls {path_calls}: not the warmed buckets and the "
           f"service's batches")
@@ -2825,7 +2855,10 @@ def train_phase(x, t, delta, lam2: float) -> dict:
         "cox_coord": sweeps * sum(size * c for size, c in
                                   enumerate(candidates, 1)),
         "lipschitz": 1,
-        "revcumsum": sum(scored) * (2 * steps + 1) * len(blocks)})
+        "revcumsum": sum(scored) * (2 * steps + 1) * len(blocks),
+        # the held-out batches featurized for the refit (training, with
+        # gradients, keeps the eager scan)
+        "ssd_scan": dcfg.refit_batches * cfg.n_layers})
     check(len(size_s) == dcfg.k and res.nnz <= dcfg.k
           and res.artifact.is_sparse and res.artifact.k == res.nnz
           and res.artifact.n_grid == dcfg.grid_size
@@ -3314,9 +3347,11 @@ def decode_phase() -> dict:
     """Phase 14: batched decode through ``launch.serve.serve_batch`` for
     DECODE_CASES at their published widths, each architecture freed
     before the next. The kernel counts are zeroed before and read after:
-    no module of the decode path reaches a kernel of its own."""
+    only zamba2's bfloat16 full-sequence forwards reach a kernel
+    (ssd_scan)."""
     import torch
 
+    from repro_torch.configs import get_config
     from repro_torch.kernels import ops
 
     log("phase 14: batched decode")
@@ -3325,7 +3360,15 @@ def decode_phase() -> dict:
     out = {arch: _decode_case(arch, layers, prompt, new, k)
            for k, (arch, layers, prompt, new) in enumerate(DECODE_CASES)}
     launches = ops.launch_counts()
-    _check_counts("decode path", launches, {})
+    # zamba2's full-sequence forwards in bfloat16 (prefill, the check's full
+    # forward) scan each of its Mamba2 layers once; its float32 twin and
+    # the decode steps keep the eager form
+    zamba = get_config("zamba2-2.7b").n_layers
+    scans = launches["ssd_scan"]
+    check(scans >= 2 * zamba and scans % zamba == 0,
+          f"decode path: {scans} ssd_scan launches, not a multiple of "
+          f"zamba2's {zamba} Mamba2 layers")
+    _check_counts("decode path", launches, {"ssd_scan": scans})
     out["launches"] = launches
     out["seconds"] = time.perf_counter() - t0
     torch.cuda.empty_cache()
@@ -4231,6 +4274,110 @@ def timings(state) -> dict:
 # Phase 8: the second slice's kernels at their paths' shapes
 # ---------------------------------------------------------------------------
 
+def _ssd_inputs(b, s, h, hd, g, n, seed=0):
+    """x, B and C as strided views of one bfloat16 (B, S, channels) conv
+    output, as the mixer hands them over; dt as softplus gives it, A as
+    the mixer's a_log makes it, D near 1."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    xbc = torch.randn(b, s, h * hd + 2 * g * n, device="cuda",
+                      generator=gen).to(torch.bfloat16)
+    xh = xbc[..., :h * hd].reshape(b, s, h, hd)
+    bb, cc = xbc[..., h * hd:h * hd + g * n], xbc[..., h * hd + g * n:]
+    dt = torch.nn.functional.softplus(
+        torch.randn(b, s, h, device="cuda", generator=gen) - 1.0)
+    a = -torch.linspace(1.0, 16.0, h, device="cuda")
+    d_skip = 1.0 + 0.1 * torch.randn(h, device="cuda", generator=gen)
+    return xh, dt, a, bb, cc, d_skip
+
+
+def check_ssd_scan() -> float:
+    """ssd_scan against the eager form on the card (TF32 off) at the
+    featurize cells' shapes, a ragged S and the other instantiated shapes:
+    y within SSD_ATOL beyond its bfloat16 rounding, the final state within
+    SSD_STATE_TOL, the same bits twice; then one call's launch shape.
+    Returns the largest |y - plain y| (both bfloat16)."""
+    import torch
+
+    from repro_torch.kernels import ops, ssd_scan
+    from repro_torch.models import ssm
+
+    worst = 0.0
+    for b, s, h, hd, g, n, q in (*SSD_CELLS.values(), *SSD_CHECKS):
+        args = _ssd_inputs(b, s, h, hd, g, n)
+        y, st = ops.ssd_scan(*args, q, g, return_state=True)
+        y2, st2 = ops.ssd_scan(*args, q, g, return_state=True)
+        same = torch.equal(y, y2) and torch.equal(st, st2)
+        xh, dt, a, bb, cc, d_skip = args
+        y32, st32 = ssm._ssd_groups(xh, dt, a, bb, cc, q, g)
+        y32 = y32 + d_skip[None, None, :, None] * xh.float()
+        scale = float(y32.abs().max())
+        y_err = float(((y.float() - y32).abs() - 2.0 ** -8 * y32.abs()).max())
+        st_err = float((st - st32).abs().max() / st32.abs().max())
+        plain_err = float((y.float() - y32.to(y.dtype).float()).abs().max())
+        flips = float((y != y32.to(y.dtype)).float().mean())
+        worst = max(worst, plain_err)
+        log(f"  ssd_scan at (B, S, H, hd, G, N, Q) = {(b, s, h, hd, g, n, q)}"
+            f": |y - y32| beyond 2^-8 |y32| {y_err / scale:.3e} of max |y| "
+            f"(tol {SSD_ATOL:.0e}); state {st_err:.3e} of its max (tol "
+            f"{SSD_STATE_TOL:.0e}); |y - plain y| max {plain_err:.3e}, "
+            f"{flips:.3%} of values another bfloat16; same bits twice: "
+            f"{same}")
+        check(y_err <= SSD_ATOL * scale and st_err <= SSD_STATE_TOL and same,
+              f"ssd_scan at {(b, s, h, hd, g, n, q)}")
+        del args, y, y2, st, st2, y32, st32
+    args = _ssd_inputs(*SSD_CHECKS[0][:6])
+    check_launch_shape("ssd_scan", lambda: ops.ssd_scan(
+        *args, SSD_CHECKS[0][6], SSD_CHECKS[0][4]),
+        ssd_scan.KERNELS_PER_CALL, "ssd_scan")
+    torch.cuda.empty_cache()
+    return worst
+
+
+def ssd_timings() -> dict:
+    """ssd_scan at both featurize cells' shapes: its CUDA-events median and
+    device time a call, the plain version's, and its bound (x, B, C and dt
+    read and y written once at 3.35 TB/s, or the chunked form's products,
+    C B^T, the masked intra-chunk product, the chunk states and the
+    read-out, at the bfloat16 tensor-core rate it uses, the larger).
+    ``times`` is the mamba2 cell's, as timings() gives them."""
+    import torch
+
+    from repro_torch.analysis import roofline as rl
+    from repro_torch.kernels import ops
+    from repro_torch.models import ssm
+
+    cells = {}
+    for cell, (b, s, h, hd, g, n, q) in SSD_CELLS.items():
+        args = _ssd_inputs(b, s, h, hd, g, n)
+        nbytes = 2 * (2 * b * s * h * hd + 2 * b * s * g * n) + 4 * b * s * h
+        flops = b * h * -(-s // q) * (2 * q * q * (n + hd) + 4 * q * hd * n)
+        t_bytes, t_ops = nbytes / rl.HBM_BYTES_PER_S, flops / BF16_PEAK
+        bound = (max(t_bytes, t_ops) * 1e3,
+                 "bytes" if t_bytes >= t_ops else "operations")
+        with torch.no_grad():
+            kern = kernel_ms(lambda i: ops.ssd_scan(*args, q, g), reps=20)
+            plain = kernel_ms(lambda i: ssm.ssd_eager(*args, q, g), reps=2,
+                              rounds=3)
+        cells[cell] = {"shape": [b, s, h, hd, g, n, q], "ms": kern[0],
+                       "device_ms": kern[1], "plain_ms": plain[0],
+                       "plain_device_ms": plain[1], "bound_ms": bound[0],
+                       "bound_by": bound[1], "bytes": nbytes, "flops": flops}
+        log(f"  ssd_scan at {cell}'s shape {(b, s, h, hd, g, n, q)}: median "
+            f"{kern[0]:.4f} ms a call by CUDA events, device time "
+            f"{kern[1]:.4f} ms; plain version {plain[0]:.3f} ms, device "
+            f"{plain[1]:.3f} ms; bound {bound[0]:.4f} ms by {bound[1]} "
+            f"({nbytes / 1e6:.0f} MB at 3.35 TB/s, {flops / 1e9:.0f} GFLOP at "
+            f"989 TFLOP/s) -> device time at {bound[0] / kern[1]:.1%} of "
+            f"bound")
+        if cell == "mamba2-featurize-512":
+            times = (kern, plain, bound)
+        del args
+        torch.cuda.empty_cache()
+    return {"times": times, "cells": cells}
+
+
 def stream_timings(strat_h0) -> tuple:
     """(times as timings() gives them, library-call ms) of revcumsum and
     cox_batch at one streaming chunk's panel and of the stratified curves
@@ -4631,6 +4778,7 @@ def main() -> int:
         launch_shape=False))
     errs["revcumsum"] = max(errs["revcumsum"], check_selection_scans(
         selection_scan_shapes()))
+    errs["ssd_scan"] = check_ssd_scan()
 
     t0 = time.perf_counter()
     x, t, delta, beta_star = make_correlated_survival(
@@ -4675,6 +4823,9 @@ def main() -> int:
     more, more_library = stream_timings(strat["h0"])
     times.update(more)
     library.update(more_library)
+    ssd = ssd_timings()
+    times["ssd_scan"] = ssd["times"]
+    library["ssd_scan"] = None
     log("  seconds per streaming epoch: "
         + ", ".join(f"{m} {s:.4f} (device idle {stream['idle'][m]:.1%})"
                     for m, s in stream["epoch_s"].items())
@@ -4742,6 +4893,7 @@ def main() -> int:
             "device_ms": dev, "path": PATH_OF[name],
             "launches_by_path": {path: counts[name] for path, counts
                                  in launches.items() if counts[name]},
+            **({"cells": ssd["cells"]} if name == "ssd_scan" else {}),
             **({"max_abs_err_bf16": errs_bf16[name]}
                if name in errs_bf16 else {})})
     check(sorted(k["name"] for k in kernels) == sorted(REPLACES),

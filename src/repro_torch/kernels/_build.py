@@ -52,6 +52,9 @@ _SIGNATURES = {
                              ctypes.c_uint, _P, _P, _P]),
     "repro_survival_curves_stratified": (_I, [_P, _P, _P, _I, _I, _I, _I, _I,
                                               _I, _I, _I, _P, _P]),
+    "repro_ssd_scan": (_I, [_P, ctypes.c_longlong, _I, _P, _P,
+                            ctypes.c_longlong, _I, _P, _P, _P, _P, _P, _I, _I,
+                            _I, _I, _I, _I, _I, _P]),
 }
 
 _LOCK = threading.Lock()

@@ -10,8 +10,8 @@ serving threads launch from several host threads) count the calls that
 launched their kernels and nothing else; a call may be several launches
 (every wrapper module states its own in ``KERNELS_PER_CALL``:
 ``cox_coord`` 2, ``revcumsum`` 1 or 2 by layout, ``cox_batch``,
-``lipschitz`` and both curve kernels 1). A ``cox_coord`` call over C
-candidates counts C, one a candidate coordinate, in both.
+``lipschitz``, both curve kernels and ``ssd_scan`` 1). A ``cox_coord``
+call over C candidates counts C, one a candidate coordinate, in both.
 
 The port has no block autotuner: each kernel picks its own launch shape.
 """
@@ -28,6 +28,7 @@ from . import cox_coord as _cox_coord
 from . import lipschitz as _lipschitz
 from . import ref
 from . import revcumsum as _revcumsum
+from . import ssd_scan as _ssd_scan
 from . import survival_curves as _survival_curves
 
 Tensor = torch.Tensor
@@ -38,7 +39,7 @@ _M_DISPATCH = obs_metrics.REGISTRY.counter(
 
 # every wrapper's kernel, by the name its launches count under
 KERNELS = ("cox_coord", "lipschitz", "survival_curves", "revcumsum",
-           "cox_batch", "survival_curves_stratified")
+           "cox_batch", "survival_curves_stratified", "ssd_scan")
 
 
 def _count(kernel: str, t: Tensor, calls: int = 1) -> None:
@@ -144,3 +145,15 @@ def survival_curves_stratified(eta: Tensor, h0: Tensor,
     (b, g) copy."""
     _count("survival_curves_stratified", eta)
     return _survival_curves.survival_curves_stratified(eta, h0, strata)
+
+
+def ssd_scan(xh: Tensor, dt: Tensor, a: Tensor, bb: Tensor, cc: Tensor,
+             d_skip: Tensor, chunk: int, n_groups: int,
+             return_state: bool = False
+             ) -> Tuple[Tensor, Optional[Tensor]]:
+    """The Mamba2 mixer's chunked SSD with its skip term, y in xh's dtype
+    (B, S, H, hd), and the final state with ``return_state``
+    (``ssd_scan.ssd_scan``)."""
+    _count("ssd_scan", xh)
+    return _ssd_scan.ssd_scan(xh, dt, a, bb, cc, d_skip, chunk, n_groups,
+                              return_state)

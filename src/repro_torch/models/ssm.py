@@ -21,6 +21,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.distributed.tensor import DTensor
 
+from ..kernels import ops
 from ..obs import trace
 from .layers import const, normal
 from . import pspec
@@ -98,8 +99,10 @@ def mamba2_forward(params, x: Tensor, *, d_state: int, head_dim: int = 64,
     ``init_mamba2`` sets it; head h reads B and C of group h // (H / G);
     the gated norm is taken per group of d_inner / G channels with
     ``eps``. Spans with the card's time: ``ssm.in`` (the input projection,
-    the conv, dt and A), ``ssm.scan`` (the SSD and the skip term) and
-    ``ssm.out`` (the gated norm and the output projection)."""
+    the conv, dt and A), ``ssm.scan`` (the SSD and the skip term; its
+    ``path`` is "kernel" where ``_takes_kernel`` sends it to
+    ``ops.ssd_scan``, else "eager") and ``ssm.out`` (the gated norm and
+    the output projection)."""
     b, s, d_model = x.shape
     d_inner = _inner(d_model, head_dim, expand, n_heads)
     n_heads = d_inner // head_dim
@@ -117,11 +120,17 @@ def mamba2_forward(params, x: Tensor, *, d_state: int, head_dim: int = 64,
         dt = F.softplus(dt.float() + params["dt_bias"])           # (B,S,H)
         a = -torch.exp(params["a_log"])                            # (H,)
 
-    with trace.span("ssm.scan", device_time=True):
-        xh = xs.reshape(b, s, n_heads, head_dim)
-        y, st = _ssd_groups(xh, dt, a, bb, cc, chunk, n_groups)
-        y = y + params["d_skip"][None, None, :, None] * xh.float()
-        y = y.reshape(b, s, d_inner).to(x.dtype)
+    xh = xs.reshape(b, s, n_heads, head_dim)
+    kernel = _takes_kernel(xh, dt, a, bb, cc, params["d_skip"])
+    with trace.span("ssm.scan", device_time=True,
+                    path="kernel" if kernel else "eager"):
+        if kernel:
+            y, st = ops.ssd_scan(xh, dt, a, bb, cc, params["d_skip"], chunk,
+                                 n_groups, return_state)
+        else:
+            y, st = ssd_eager(xh, dt, a, bb, cc, params["d_skip"], chunk,
+                              n_groups)
+        y = y.reshape(b, s, d_inner)
     with trace.span("ssm.out", device_time=True):
         out = _gated_out(params, y, z, x.dtype, n_groups, eps)
     if not return_state:
@@ -155,6 +164,27 @@ def _gated_out(params, y: Tensor, z: Tensor, dtype, n_groups: int = 1,
     g = (g32 * torch.rsqrt(var + eps)).reshape(shape).to(dtype) \
         * params["norm_scale"]
     return g @ params["w_out"]
+
+
+def ssd_eager(xh: Tensor, dt: Tensor, a: Tensor, bb: Tensor, cc: Tensor,
+              d_skip: Tensor, chunk: int, n_groups: int):
+    """The SSD in eager operations (``_ssd_groups``), then y + D x rounded
+    to xh's dtype: (y (B, S, H, hd), the final state (B, H, hd, N)
+    float32). The plain version of ``ops.ssd_scan``."""
+    y, st = _ssd_groups(xh, dt, a, bb, cc, chunk, n_groups)
+    y = y + d_skip[None, None, :, None] * xh.float()
+    return y.to(xh.dtype), st
+
+
+def _takes_kernel(xh: Tensor, *others: Tensor) -> bool:
+    """The SSD runs in ``ops.ssd_scan``'s kernel for a bfloat16 tensor on a
+    card that is no DTensor and needs no gradient (grad mode off, or no
+    input requiring one); training, the mesh, float32 models and the CPU
+    keep the eager form."""
+    return (xh.is_cuda and xh.dtype == torch.bfloat16
+            and not isinstance(xh, DTensor)
+            and not (torch.is_grad_enabled()
+                     and any(t.requires_grad for t in (xh, *others))))
 
 
 def _ssd_groups(xh: Tensor, dt: Tensor, a: Tensor, bb: Tensor, cc: Tensor,

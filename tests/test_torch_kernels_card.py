@@ -15,7 +15,11 @@ This file imports no JAX: the card's machine has none.
   update the eager ``addcmul_`` within 1 ulp;
 - a batched call adds C to ``launch_counts()["cox_coord"]``;
 - the batched finetune on the card equals per-candidate plain finetunes
-  on the card within float32 tolerances.
+  on the card within float32 tolerances;
+- the SSD scan kernel (``ssd_scan``) against its plain version, the eager
+  form, on the card at mamba2-130m's widths, at a Nemotron-H M layer (8
+  groups, S 4,096), at zamba2's and the reduced configs' shapes, with
+  ragged S and the final state; one launch per Mamba2 layer of a forward.
 """
 import numpy as np
 import pytest
@@ -26,8 +30,10 @@ from repro_torch.core import beam, cox, surrogate  # noqa: E402
 from repro_torch.data.synthetic import (SyntheticSpec,  # noqa: E402
                                         make_correlated_survival,
                                         make_tied_survival)
+from repro_torch import configs  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels.cox_coord import cox_coord  # noqa: E402
+from repro_torch.models import build_model, ssm  # noqa: E402
 
 pytestmark = pytest.mark.card
 
@@ -149,3 +155,115 @@ def test_batched_finetune_matches_plain_finetunes(card, kind):
                                    atol=1e-5)
         np.testing.assert_allclose(etas[r].cpu(), e.cpu(), rtol=1e-3,
                                    atol=1e-4)
+
+
+# -- the SSD scan ------------------------------------------------------------
+
+# y against the eager float32 y (TF32 off) before its rounding: the
+# kernel's own rounding to bfloat16 (2^-9 relative, 2^-8 allowing the
+# float32 values to straddle a rounding edge), and float32 sums in another
+# order with float32 operands split into bfloat16 halves (~2^-17 relative
+# a term), at most SSD_ATOL of the output's largest value
+SSD_ATOL = 1e-4
+# the final state (float32 both) against the eager state, of its largest
+# value: L = cumsum(dt A) reaches |L| ~ 600, where a float32 ulp is 6e-5,
+# and exp(L_Q - L_s) carries that error in either summation order (6.2e-5
+# measured at mamba2-130m's widths)
+SSD_STATE_TOL = 5e-4
+
+
+def _ssd_inputs(b, s, h, hd, g, n, card, seed=0):
+    """x, B and C as strided views of one bfloat16 (B, S, channels) conv
+    output, as the mixer hands them over; dt as softplus gives it, A and
+    D as the mixer's parameters make them."""
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    xbc = torch.randn(b, s, h * hd + 2 * g * n, generator=gen).to(
+        card, torch.bfloat16)
+    xh = xbc[..., :h * hd].reshape(b, s, h, hd)
+    bb, cc = xbc[..., h * hd:h * hd + g * n], xbc[..., h * hd + g * n:]
+    dt = torch.nn.functional.softplus(
+        torch.randn(b, s, h, generator=gen) - 1.0).to(card)
+    a = -torch.linspace(1.0, 16.0, h, device=card)
+    d_skip = (1.0 + 0.1 * torch.randn(h, generator=gen)).to(card)
+    return xh, dt, a, bb, cc, d_skip
+
+
+@pytest.mark.parametrize("b,s,h,hd,g,n,q", [
+    (4, 512, 24, 64, 1, 128, 128),    # mamba2-130m
+    (2, 4096, 64, 64, 8, 128, 128),   # a Nemotron-H M layer
+    (3, 300, 24, 64, 1, 128, 128),    # ragged: pads the last chunk
+    (2, 200, 16, 64, 1, 64, 64),      # zamba2-2.7b, ragged
+    (2, 37, 6, 16, 2, 16, 16)])       # the reduced configs, 2 groups
+def test_ssd_scan_against_the_eager_form(card, b, s, h, hd, g, n, q):
+    xh, dt, a, bb, cc, d_skip = _ssd_inputs(b, s, h, hd, g, n, card)
+    y, st = ops.ssd_scan(xh, dt, a, bb, cc, d_skip, q, g, return_state=True)
+    y0, st0 = ops.ssd_scan(xh, dt, a, bb, cc, d_skip, q, g)
+    y32, want_st = ssm._ssd_groups(xh, dt, a, bb, cc, q, g)
+    y32 = y32 + d_skip[None, None, :, None] * xh.float()
+    torch.cuda.synchronize()
+    assert y.dtype == torch.bfloat16 and y.shape == (b, s, h, hd)
+    assert st0 is None and torch.equal(y0, y)
+    scale = y32.abs().max().item()
+    err = (y.float() - y32).abs() - 2.0 ** -8 * y32.abs()
+    assert err.max().item() <= SSD_ATOL * scale, err.max().item() / scale
+    # the plain version's own rounding of the same values
+    plain, _ = ssm.ssd_eager(xh, dt, a, bb, cc, d_skip, q, g)
+    assert ((y.float() - plain.float()).abs()
+            <= 2.0 ** -7 * plain.float().abs() + SSD_ATOL * scale).all()
+    assert st.shape == (b, h, hd, n) and st.dtype == torch.float32
+    st_err = (st - want_st).abs().max().item()
+    assert st_err <= SSD_STATE_TOL * want_st.abs().max().item(), st_err
+
+
+def test_ssd_scan_repeats_its_bits(card):
+    xh, dt, a, bb, cc, d_skip = _ssd_inputs(2, 1000, 24, 64, 1, 128, card)
+    y1, s1 = ops.ssd_scan(xh, dt, a, bb, cc, d_skip, 128, 1, True)
+    y2, s2 = ops.ssd_scan(xh, dt, a, bb, cc, d_skip, 128, 1, True)
+    assert torch.equal(y1, y2) and torch.equal(s1, s2)
+
+
+def test_ssd_scan_refuses_a_shape_it_does_not_instantiate(card):
+    xh, dt, a, bb, cc, d_skip = _ssd_inputs(1, 64, 4, 32, 1, 128, card)
+    ops.reset_launch_counts()
+    with pytest.raises(ValueError, match="not instantiated"):
+        ops.ssd_scan(xh, dt, a, bb, cc, d_skip, 128, 1)
+    xh, dt, a, bb, cc, d_skip = _ssd_inputs(1, 64, 4, 64, 1, 128, card)
+    with pytest.raises(TypeError):
+        ops.ssd_scan(xh.float(), dt, a, bb.float(), cc.float(), d_skip, 128,
+                     1)
+    assert ops.launch_counts()["ssd_scan"] == 0
+
+
+@pytest.mark.parametrize("arch,layers", [("mamba2-130m", 2),
+                                         ("nemotron3-nano-30b-a3b", 0)])
+def test_a_forward_launches_once_a_mamba2_layer(card, arch, layers):
+    """mamba2-130m at full width cut to 2 layers, and the reduced Nemotron-H
+    (MEM*E: two M layers of 2 groups), in bfloat16 under inference mode:
+    one launch a Mamba2 layer; with gradients on, none."""
+    cfg = configs.get_config(arch)
+    if layers:
+        cfg = cfg.scaled(n_layers=layers, vocab_size=1024)
+    else:
+        cfg = configs.reduced_config(cfg).scaled(dtype="bfloat16")
+    n_ssm = (cfg.layer_pattern.count("M") if cfg.family == "pattern"
+             else cfg.n_layers)
+    model = build_model(cfg, device="cuda",
+                        generator=torch.Generator(device="cuda")
+                        .manual_seed(0))
+    tokens = torch.randint(0, cfg.vocab_size, (2, 160), device=card)
+    ops.reset_launch_counts()
+    with torch.inference_mode():
+        h_kernel, _ = model.hidden_states({"tokens": tokens})
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["ssd_scan"] == n_ssm
+    ops.reset_launch_counts()
+    h_eager, _ = model.hidden_states({"tokens": tokens})
+    assert h_eager.requires_grad
+    assert ops.launch_counts()["ssd_scan"] == 0
+    if cfg.family == "pattern":
+        return  # a top-k flip moves a token by O(1): values held above
+    rel = (torch.linalg.norm(h_kernel.float() - h_eager.detach().float())
+           / torch.linalg.norm(h_eager.detach().float())).item()
+    # bfloat16 activations rounded in the same places; the scans' sums in
+    # other orders flip a rounding here and there, compounded over layers
+    assert rel < 2e-2, rel
