@@ -123,7 +123,9 @@ Phases, each printed as it runs; any failed check raises:
      retries, fail_next(3) one batch of error responses then SERVING
      again, a bit-flipped artifact FAILED while the live engine serves);
      1 s of closed-loop serving under ``obs.profile.maybe_profile``, its
-     trace's device idle share. Then the 8-strata artifact's 4,096
+     trace's device idle share, and 1 s with the service's spans on (both
+     read by the benchmark's readers in ``perfbench/harness.py``). Then
+     the 8-strata artifact's 4,096
      requests through survival_curves_stratified, counted the same way.
      Its launches are the kernels line's "serve" and "serve_stratified".
   12. the deep-survival serving path at full width, after phase 10:
@@ -1706,39 +1708,8 @@ def _open_loop(svc, feats, rps: float, seconds: float, seed: int,
     return out
 
 
-def _device_idle(trace_path: Path, wall_s: float) -> float:
-    """1 - (the union of the device's kernels, copies and memsets in a
-    torch.profiler Chrome trace) / ``wall_s``."""
-    spans = sorted(
-        (float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0.0)))
-        for e in json.loads(trace_path.read_text())["traceEvents"]
-        if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
-    check(bool(spans), f"{trace_path}: no device activity in the trace")
-    busy_us, end = 0.0, float("-inf")
-    for a, b in spans:
-        if b > end:
-            busy_us += b - max(a, end)
-            end = b
-    return 1.0 - busy_us / 1e6 / wall_s
-
-
 SERVICE_SPANS = ("service.step", "service.batch_form", "service.dispatch",
                  "engine.score", "service.respond")
-
-
-def _span_breakdown(path: Path, loop: dict) -> dict:
-    """Mean milliseconds a batch in each of the drain thread's spans, and
-    the share of the closed loop's window spent inside ``service.step``."""
-    from repro_torch.obs import events
-
-    spans = [r for r in events.read_jsonl(str(path)) if r["kind"] == "span"]
-    steps = sum(r["name"] == "service.step" for r in spans)
-    check(steps > 0, f"{path}: no service.step span")
-    total = {name: sum(r["dur_s"] for r in spans if r["name"] == name)
-             for name in SERVICE_SPANS}
-    return {"batches": steps,
-            "ms_per_batch": {k: v / steps * 1e3 for k, v in total.items()},
-            "step_share": total["service.step"] / loop["seconds"]}
 
 
 def serving_phase(model, strat_model, x, t, delta) -> dict:
@@ -1748,6 +1719,7 @@ def serving_phase(model, strat_model, x, t, delta) -> dict:
 
     import numpy as np
 
+    from perfbench import harness
     from repro_torch.kernels import ops
     from repro_torch.obs import profile, trace
     from repro_torch.serving import (ArtifactCorrupt, ChaosEngine,
@@ -1965,7 +1937,9 @@ def serving_phase(model, strat_model, x, t, delta) -> dict:
             os.environ[profile.ENV_VAR] = before
     chrome = prof_dir / "serve" / profile.TRACE_FILE
     check(chrome.is_file(), f"no profiler trace at {chrome}")
-    out["idle_share"] = _device_idle(chrome, loop["seconds"])
+    dev, _ = harness.read_chrome_trace(str(chrome))
+    check(bool(dev), f"{chrome}: no device activity in the trace")
+    out["idle_share"] = 1.0 - harness.busy_us(dev) / 1e6 / loop["seconds"]
     out["profiled"] = loop
     log(f"  profiled {loop['seconds']:.3f} s of closed-loop serving "
         f"({loop['reqs_per_s']:.1f} req/s) into {chrome.relative_to(ROOT)}: "
@@ -1981,7 +1955,15 @@ def serving_phase(model, strat_model, x, t, delta) -> dict:
         svc.stop()
     finally:
         trace.configure(None)
-    out["spans"] = _span_breakdown(spans_path, loop)
+    spans = harness.read_spans(str(spans_path))
+    steps = sum(r["name"] == "service.step" for r in spans)
+    check(steps > 0, f"{spans_path}: no service.step span")
+    total = {name: sum(r["dur_s"] for r in spans if r["name"] == name)
+             for name in SERVICE_SPANS}
+    out["spans"] = {"batches": steps,
+                    "ms_per_batch": {k: v / steps * 1e3
+                                     for k, v in total.items()},
+                    "step_share": total["service.step"] / loop["seconds"]}
     log(f"  traced {loop['seconds']:.3f} s of closed-loop serving "
         f"({loop['reqs_per_s']:.1f} req/s, {loop['batches']} batches): ms a "
         f"batch " + ", ".join(f"{k} {v:.4f}" for k, v in
@@ -4293,15 +4275,15 @@ def _ssd_inputs(b, s, h, hd, g, n, seed=0):
 
 
 def check_ssd_scan() -> float:
-    """ssd_scan against the eager form on the card (TF32 off) at the
-    featurize cells' shapes, a ragged S and the other instantiated shapes:
-    y within SSD_ATOL beyond its bfloat16 rounding, the final state within
-    SSD_STATE_TOL, the same bits twice; then one call's launch shape.
-    Returns the largest |y - plain y| (both bfloat16)."""
+    """ssd_scan against its plain version (``ref.ssd_scan_ref``) on the
+    card (TF32 off) at the featurize cells' shapes, a ragged S and the
+    other instantiated shapes: y within SSD_ATOL beyond its bfloat16
+    rounding, the final state within SSD_STATE_TOL, the same bits twice;
+    then one call's launch shape. Returns the largest |y - plain y| (both
+    bfloat16)."""
     import torch
 
-    from repro_torch.kernels import ops, ssd_scan
-    from repro_torch.models import ssm
+    from repro_torch.kernels import ops, ref, ssd_scan
 
     worst = 0.0
     for b, s, h, hd, g, n, q in (*SSD_CELLS.values(), *SSD_CHECKS):
@@ -4310,8 +4292,9 @@ def check_ssd_scan() -> float:
         y2, st2 = ops.ssd_scan(*args, q, g, return_state=True)
         same = torch.equal(y, y2) and torch.equal(st, st2)
         xh, dt, a, bb, cc, d_skip = args
-        y32, st32 = ssm._ssd_groups(xh, dt, a, bb, cc, q, g)
-        y32 = y32 + d_skip[None, None, :, None] * xh.float()
+        # given float32 x, B and C the plain version keeps y unrounded
+        y32, st32 = ref.ssd_scan_ref(xh.float(), dt, a, bb.float(),
+                                     cc.float(), d_skip, q, g)
         scale = float(y32.abs().max())
         y_err = float(((y.float() - y32).abs() - 2.0 ** -8 * y32.abs()).max())
         st_err = float((st - st32).abs().max() / st32.abs().max())
@@ -4345,8 +4328,7 @@ def ssd_timings() -> dict:
     import torch
 
     from repro_torch.analysis import roofline as rl
-    from repro_torch.kernels import ops
-    from repro_torch.models import ssm
+    from repro_torch.kernels import ops, ref
 
     cells = {}
     for cell, (b, s, h, hd, g, n, q) in SSD_CELLS.items():
@@ -4358,8 +4340,8 @@ def ssd_timings() -> dict:
                  "bytes" if t_bytes >= t_ops else "operations")
         with torch.no_grad():
             kern = kernel_ms(lambda i: ops.ssd_scan(*args, q, g), reps=20)
-            plain = kernel_ms(lambda i: ssm.ssd_eager(*args, q, g), reps=2,
-                              rounds=3)
+            plain = kernel_ms(lambda i: ref.ssd_scan_ref(*args, q, g),
+                              reps=2, rounds=3)
         cells[cell] = {"shape": [b, s, h, hd, g, n, q], "ms": kern[0],
                        "device_ms": kern[1], "plain_ms": plain[0],
                        "plain_device_ms": plain[1], "bound_ms": bound[0],

@@ -1,7 +1,8 @@
 """Public entry points to the kernels, as the JAX package's ``kernels/ops.py``.
 
-Each call dispatches to one wrapper: a tensor on a card launches the CUDA
-kernel, a tensor on the CPU takes the plain version (``ref.py``). Every
+Each call dispatches to one wrapper, which picks its own route: a tensor on
+a card launches the CUDA kernel (or raises where the kernel does not take
+it), a tensor on the CPU takes the plain version in ``ref.py``. Every
 dispatch counts in ``kernel_dispatch_total``, labelled with the kernel and
 the route taken (``cuda`` or ``plain``), so a fleet that silently ran the
 plain version would show it in the metrics. The wrappers' launch counts
@@ -13,7 +14,8 @@ launched their kernels and nothing else; a call may be several launches
 ``lipschitz``, both curve kernels and ``ssd_scan`` 1). A ``cox_coord``
 call over C candidates counts C, one a candidate coordinate, in both.
 
-The port has no block autotuner: each kernel picks its own launch shape.
+Each kernel picks its own launch shape; the curve kernels read theirs
+(``blocks_per_sm``) from ``autotune.knob``, the default where untuned.
 """
 from __future__ import annotations
 

@@ -1,9 +1,9 @@
-"""Plain-PyTorch versions of every kernel.
-
-Each wrapper takes its plain version for a tensor on the CPU; the tests
-and ``chip_smoke.py`` hold the CUDA kernels against these. They mirror the
-JAX package's oracles (``repro/kernels/ref.py``) and compute in float32,
-or in float64 when given float64.
+"""Plain-PyTorch versions of every kernel but the fused coordinate step
+(``core/solvers.py::coord_step``): each wrapper takes its own for a tensor
+on the CPU, and the tests and ``chip_smoke.py`` hold the CUDA kernels
+against these. They mirror the JAX package's oracles
+(``repro/kernels/ref.py``) and compute in float32, or in float64 when
+given float64; ``ssd_scan_ref``, with no oracle there, in float32.
 
 ``cox_coord_ref`` and ``lipschitz_ref`` also take ``risk_start``, the first
 index of each sample's tie group, and read each risk set there, as the
@@ -16,6 +16,7 @@ import math
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 Tensor = torch.Tensor
 INV_6_SQRT3 = 1.0 / (6.0 * math.sqrt(3.0))
@@ -138,3 +139,57 @@ def lipschitz_ref(x: Tensor, delta: Tensor,
     l2 = 0.25 * torch.sum(d * rng * rng, dim=0)
     l3 = INV_6_SQRT3 * torch.sum(d * rng * rng * rng, dim=0)
     return l2, l3
+
+
+def ssd_scan_ref(xh: Tensor, dt: Tensor, a: Tensor, bb: Tensor, cc: Tensor,
+                 d_skip: Tensor, chunk: int, n_groups: int
+                 ) -> Tuple[Tensor, Tensor]:
+    """The Mamba2 mixer's chunked SSD plus its skip term D x: (y (B, S, H,
+    hd) in xh's dtype, the final state (B, H, hd, N) float32). dt (B, S, H)
+    float32; a, d_skip (H,); bb, cc (B, S, G N), head h reading group
+    h // (H / G), so every group runs in the same passes. S is padded to
+    whole chunks with dt = 0, so pad rows neither decay nor feed the
+    state."""
+    b, s, h, hd = xh.shape
+    g, n, q = n_groups, bb.shape[-1] // n_groups, chunk
+    nc = -(-s // q)
+    pad = nc * q - s
+    skip = d_skip[None, None, :, None] * xh.float()
+    if pad:
+        xh = F.pad(xh, (0, 0, 0, 0, 0, pad))
+        dt = F.pad(dt, (0, 0, 0, pad))
+        bb = F.pad(bb, (0, 0, 0, pad))
+        cc = F.pad(cc, (0, 0, 0, pad))
+    xc = xh.reshape(b, nc, q, g, h // g, hd).float()
+    dtc = dt.reshape(b, nc, q, g, h // g)
+    bc = bb.reshape(b, nc, q, g, n).float()
+    ccx = cc.reshape(b, nc, q, g, n).float()
+    # L_t, the log decay summed within the chunk
+    cum = torch.cumsum(dtc * a.reshape(g, h // g), dim=2)   # (B,nc,q,G,J)
+    total = cum[:, :, -1:]
+    # intra-chunk: y[t] = sum_{s<=t} C_t.B_s exp(L_t - L_s) dt_s x_s
+    idx = torch.arange(q, device=xh.device)
+    causal = (idx[:, None] >= idx[None, :])[:, :, None, None]
+    dec = torch.exp(torch.clamp(cum[:, :, :, None] - cum[:, :, None],
+                                -60.0, 0.0))             # (B,nc,q,q,G,J)
+    cb = torch.einsum("bcqgn,bcsgn->bcqsg", ccx, bc)
+    w_ = cb[..., None] * dec * dtc[:, :, None] * causal
+    y_intra = torch.einsum("bcqsgj,bcsgjd->bcqgjd", w_, xc)
+    # chunk-level input state: sum_s exp(L_Q - L_s) dt_s x_s B_s^T
+    decq = torch.exp(torch.clamp(total - cum, -60.0, 0.0))
+    sin = torch.einsum("bcqgj,bcqgjd,bcqgn->bcgjdn", decq * dtc, xc, bc)
+    # chunk states: st_c = exp(L_Q_c) st_{c-1} + sin_c; chunk c reads the
+    # state coming IN to it
+    chunk_decay = torch.exp(torch.clamp(total[:, :, 0], min=-60.0))
+    st = torch.zeros(b, g, h // g, hd, n, dtype=torch.float32,
+                     device=xh.device)
+    st_in = []
+    for c in range(nc):
+        st_in.append(st)
+        st = st * chunk_decay[:, c, :, :, None, None] + sin[:, c]
+    st_in = torch.stack(st_in, dim=1)                   # (B,nc,G,J,hd,N)
+    # inter-chunk: y[t] += C_t (exp(L_t) st_in)
+    y_inter = torch.einsum("bcqgn,bcqgj,bcgjdn->bcqgjd", ccx,
+                           torch.exp(torch.clamp(cum, -60.0, 0.0)), st_in)
+    y = (y_intra + y_inter).reshape(b, nc * q, h, hd)[:, :s] + skip
+    return y.to(xh.dtype), st.reshape(b, h, hd, n)

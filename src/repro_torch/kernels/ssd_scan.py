@@ -4,16 +4,15 @@ to the model's dtype in one launch, reading x, B and C in place from the
 conv output.
 
 Replaces no TPU kernel: the JAX package runs its SSD in plain ``jnp``,
-which XLA fuses on the TPU. The port's eager form (``models/ssm.py``'s
-``_ssd_chunked`` and ``_ssd_chunked_grouped``) builds its (Q, Q, heads)
-decay and weight tensors in float32 in device memory, and most of a Mamba2
-forward's card time went to moving them; the kernel keeps them in
-registers. The source's header says what bounds it and how the design
-answers.
+which XLA fuses on the TPU. The plain version (``ref.ssd_scan_ref``)
+builds its (Q, Q, heads) decay and weight tensors in float32 in device
+memory, and most of a Mamba2 forward's card time went to moving them; the
+kernel keeps them in registers. The source's header says what bounds it
+and how the design answers.
 
-The eager form is the plain version (``models/ssm.py::ssd_eager``): the
-CPU takes it, and a CUDA tensor of a shape the library does not
-instantiate raises.
+The CPU takes the plain version. A card tensor that ``takes_kernel``
+refuses, or of a shape the library does not instantiate, raises: there
+the caller runs ``ref.ssd_scan_ref`` itself (``models/ssm.py``).
 """
 from __future__ import annotations
 
@@ -21,7 +20,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from . import _build
+from . import _build, ref
 
 Tensor = torch.Tensor
 
@@ -43,6 +42,15 @@ def _rows(t: Tensor, what: str) -> Tuple[int, int]:
     return t.stride(0), t.stride(1)
 
 
+def takes_kernel(xh: Tensor, *others: Tensor) -> bool:
+    """The kernel takes a bfloat16 tensor on a card that needs no gradient
+    (grad mode off, or no input requiring one): it has neither a backward
+    nor a float32 form."""
+    return (xh.is_cuda and xh.dtype == torch.bfloat16
+            and not (torch.is_grad_enabled()
+                     and any(t.requires_grad for t in (xh, *others))))
+
+
 def ssd_scan(xh: Tensor, dt: Tensor, a: Tensor, bb: Tensor, cc: Tensor,
              d_skip: Tensor, chunk: int, n_groups: int,
              return_state: bool = False
@@ -52,10 +60,11 @@ def ssd_scan(xh: Tensor, dt: Tensor, a: Tensor, bb: Tensor, cc: Tensor,
 
     xh (B, S, H, hd) and bb, cc (B, S, G N) may be strided views of one
     (B, S, channels) tensor (rows need not be contiguous, their values
-    must); dt (B, S, H), a and d_skip (H,) float32. On a card xh, bb and cc
-    are bfloat16, (hd, N, chunk) one of SHAPES, and the call is one kernel
-    launch and nothing else. On the CPU the plain version runs, and
-    returns the state whatever ``return_state`` says."""
+    must); dt (B, S, H), a and d_skip (H,) float32. On a card (as
+    ``takes_kernel``) xh, bb and cc are bfloat16, (hd, N, chunk) one of
+    SHAPES, and the call is one kernel launch and nothing else. On the CPU
+    the plain version runs, and returns the state whatever
+    ``return_state`` says."""
     b, s, h, hd = xh.shape
     n = bb.shape[-1] // n_groups
     if (bb.shape != (b, s, n_groups * n) or cc.shape != bb.shape
@@ -65,18 +74,17 @@ def ssd_scan(xh: Tensor, dt: Tensor, a: Tensor, bb: Tensor, cc: Tensor,
                          f"{tuple(bb.shape)}, C {tuple(cc.shape)}, dt "
                          f"{tuple(dt.shape)}, A {tuple(a.shape)}, D "
                          f"{tuple(d_skip.shape)}, groups {n_groups}")
-    if xh.device.type != "cuda":
-        from ..models import ssm  # the models import the kernels
-
-        return ssm.ssd_eager(xh, dt, a, bb, cc, d_skip, chunk, n_groups)
+    if not xh.is_cuda:
+        return ref.ssd_scan_ref(xh, dt, a, bb, cc, d_skip, chunk, n_groups)
     if (hd, n, chunk) not in SHAPES:
         raise ValueError(f"ssd_scan: (head_dim, d_state, chunk) = "
                          f"{(hd, n, chunk)} is not instantiated; the kernel "
                          f"takes {SHAPES}")
-    if {xh.dtype, bb.dtype, cc.dtype} != {torch.bfloat16} or any(
-            t.dtype != torch.float32 for t in (dt, a, d_skip)):
+    if (not takes_kernel(xh, dt, a, bb, cc, d_skip)
+            or {bb.dtype, cc.dtype} != {torch.bfloat16}
+            or any(t.dtype != torch.float32 for t in (dt, a, d_skip))):
         raise TypeError("ssd_scan: the kernel takes bfloat16 x, B, C and "
-                        "float32 dt, A, D")
+                        "float32 dt, A, D needing no gradient")
     if xh.stride(2) != hd or bb.stride() != cc.stride():
         raise ValueError(f"ssd_scan: heads must lie side by side in a row "
                          f"and B, C share strides; strides x {xh.stride()},"

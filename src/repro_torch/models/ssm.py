@@ -7,9 +7,9 @@ The PyTorch port's counterpart of the JAX package's ``models/ssm.py``.
 Recurrence per head (Mamba2, arXiv:2405.21060):
     h_t = exp(dt_t A) h_{t-1} + dt_t * x_t B_t^T        h: (hd, N)
     y_t = C_t h_t + D x_t
-Chunked (SSD) evaluation over chunks of length Q:
-    intra-chunk: masked (Q x Q) quadratic form, batched matmuls
-    inter-chunk: per-chunk states carried by a loop over the chunks
+The chunked scan itself is ``ops.ssd_scan``'s: its kernel, or its plain
+version ``kernels/ref.py::ssd_scan_ref``; this module runs the plain
+version on DTensors' shards.
 """
 from __future__ import annotations
 
@@ -21,7 +21,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.distributed.tensor import DTensor
 
-from ..kernels import ops
+from ..kernels import ops, ref, ssd_scan as ssd_kernel
 from ..obs import trace
 from .layers import const, normal
 from . import pspec
@@ -100,9 +100,10 @@ def mamba2_forward(params, x: Tensor, *, d_state: int, head_dim: int = 64,
     the gated norm is taken per group of d_inner / G channels with
     ``eps``. Spans with the card's time: ``ssm.in`` (the input projection,
     the conv, dt and A), ``ssm.scan`` (the SSD and the skip term; its
-    ``path`` is "kernel" where ``_takes_kernel`` sends it to
-    ``ops.ssd_scan``, else "eager") and ``ssm.out`` (the gated norm and
-    the output projection)."""
+    ``path`` is "kernel" where ``ssd_scan.takes_kernel`` holds, else
+    "eager") and ``ssm.out`` (the gated norm and the output projection).
+    DTensors, and training and float32 models on a card, run the plain
+    ``ref.ssd_scan_ref`` here; the rest goes to ``ops.ssd_scan``."""
     b, s, d_model = x.shape
     d_inner = _inner(d_model, head_dim, expand, n_heads)
     n_heads = d_inner // head_dim
@@ -120,16 +121,18 @@ def mamba2_forward(params, x: Tensor, *, d_state: int, head_dim: int = 64,
         dt = F.softplus(dt.float() + params["dt_bias"])           # (B,S,H)
         a = -torch.exp(params["a_log"])                            # (H,)
 
-    xh = xs.reshape(b, s, n_heads, head_dim)
-    kernel = _takes_kernel(xh, dt, a, bb, cc, params["d_skip"])
+    scan = (xs.reshape(b, s, n_heads, head_dim), dt, a, bb, cc,
+            params["d_skip"])
+    sharded = isinstance(xs, DTensor)
+    kernel = not sharded and ssd_kernel.takes_kernel(*scan)
     with trace.span("ssm.scan", device_time=True,
                     path="kernel" if kernel else "eager"):
-        if kernel:
-            y, st = ops.ssd_scan(xh, dt, a, bb, cc, params["d_skip"], chunk,
-                                 n_groups, return_state)
+        if sharded:
+            y, st = _ssd(*scan, chunk, n_groups)
+        elif kernel or not xs.is_cuda:
+            y, st = ops.ssd_scan(*scan, chunk, n_groups, return_state)
         else:
-            y, st = ssd_eager(xh, dt, a, bb, cc, params["d_skip"], chunk,
-                              n_groups)
+            y, st = ref.ssd_scan_ref(*scan, chunk, n_groups)
         y = y.reshape(b, s, d_inner)
     with trace.span("ssm.out", device_time=True):
         out = _gated_out(params, y, z, x.dtype, n_groups, eps)
@@ -166,156 +169,23 @@ def _gated_out(params, y: Tensor, z: Tensor, dtype, n_groups: int = 1,
     return g @ params["w_out"]
 
 
-def ssd_eager(xh: Tensor, dt: Tensor, a: Tensor, bb: Tensor, cc: Tensor,
-              d_skip: Tensor, chunk: int, n_groups: int):
-    """The SSD in eager operations (``_ssd_groups``), then y + D x rounded
-    to xh's dtype: (y (B, S, H, hd), the final state (B, H, hd, N)
-    float32). The plain version of ``ops.ssd_scan``."""
-    y, st = _ssd_groups(xh, dt, a, bb, cc, chunk, n_groups)
-    y = y + d_skip[None, None, :, None] * xh.float()
-    return y.to(xh.dtype), st
-
-
-def _takes_kernel(xh: Tensor, *others: Tensor) -> bool:
-    """The SSD runs in ``ops.ssd_scan``'s kernel for a bfloat16 tensor on a
-    card that is no DTensor and needs no gradient (grad mode off, or no
-    input requiring one); training, the mesh, float32 models and the CPU
-    keep the eager form."""
-    return (xh.is_cuda and xh.dtype == torch.bfloat16
-            and not isinstance(xh, DTensor)
-            and not (torch.is_grad_enabled()
-                     and any(t.requires_grad for t in (xh, *others))))
-
-
-def _ssd_groups(xh: Tensor, dt: Tensor, a: Tensor, bb: Tensor, cc: Tensor,
-                chunk: int, n_groups: int):
-    """``_ssd`` with B and C in ``n_groups`` groups (bb, cc: (B, S, G N));
-    one group keeps ``_ssd``'s operations."""
-    if n_groups == 1:
-        return _ssd(xh, dt, a, bb, cc, chunk)
-    if isinstance(xh, DTensor):
-        raise NotImplementedError("grouped B and C on a mesh")
-    b, s = bb.shape[:2]
-    return _ssd_chunked_grouped(xh, dt, a, bb.reshape(b, s, n_groups, -1),
-                                cc.reshape(b, s, n_groups, -1), chunk)
-
-
 def _ssd(xh: Tensor, dt: Tensor, a: Tensor, bb: Tensor, cc: Tensor,
-         chunk: int):
-    """``_ssd_chunked``; on DTensors, on each device's shards (independent
-    over batch, and over heads where ``model`` divides them)."""
-    if not isinstance(xh, DTensor):
-        return _ssd_chunked(xh, dt, a, bb, cc, chunk)
+         d_skip: Tensor, chunk: int, n_groups: int):
+    """``ref.ssd_scan_ref`` on each device's shards of DTensors
+    (independent over batch, and over heads where ``model`` divides them);
+    one group of B and C."""
+    if n_groups > 1:
+        raise NotImplementedError("grouped B and C on a mesh")
     b, _, h, hd = xh.shape
     heads = "model" if pspec.divides(xh, "model", h) else None
     on = functools.partial(pspec.placements_on, xh)
     ins = [on(("dp", None, heads, None)), on(("dp", None, heads), dt.shape),
            on((heads,), a.shape), on(("dp", None, None), bb.shape),
-           on(("dp", None, None), cc.shape)]
+           on(("dp", None, None), cc.shape), on((heads,), d_skip.shape)]
     outs = [ins[0], on(("dp", heads, None, None), (b, h, hd, bb.shape[-1]))]
-    return pspec.on_shards(functools.partial(_ssd_chunked, chunk=chunk), ins,
-                           outs, xh, dt, a, bb, cc)
-
-
-def _ssd_chunked(xh: Tensor, dt: Tensor, a: Tensor, bb: Tensor,
-                 cc: Tensor, chunk: int) -> Tensor:
-    """Chunked SSD. xh: (B,S,H,hd); dt: (B,S,H) float32; a: (H,); bb/cc:
-    (B,S,N) (one group). Pads S to whole chunks with dt = 0, so pad rows
-    neither decay nor feed the state. Returns (y (B,S,H,hd) float32, the
-    final state (B,H,hd,N) float32)."""
-    b, s, h, hd = xh.shape
-    n = bb.shape[-1]
-    q = chunk
-    nc = -(-s // q)
-    pad = nc * q - s
-    if pad:
-        xh = F.pad(xh, (0, 0, 0, 0, 0, pad))
-        dt = F.pad(dt, (0, 0, 0, pad))
-        bb = F.pad(bb, (0, 0, 0, pad))
-        cc = F.pad(cc, (0, 0, 0, pad))
-    xc = xh.reshape(b, nc, q, h, hd).float()
-    dtc = dt.reshape(b, nc, q, h)
-    bc = bb.reshape(b, nc, q, n).float()
-    ccx = cc.reshape(b, nc, q, n).float()
-
-    la = dtc * a                     # (B,nc,q,H) log decay per step
-    cum = torch.cumsum(la, dim=2)    # L_t
-    total = cum[:, :, -1:, :]        # L_Q
-
-    # intra-chunk: y[t] = sum_{s<=t} C_t.B_s exp(L_t - L_s) dt_s x_s
-    idx = torch.arange(q, device=xh.device)
-    causal = idx[:, None] >= idx[None, :]
-    dec = torch.exp(torch.clamp(cum[:, :, :, None, :] - cum[:, :, None, :, :],
-                                -60.0, 0.0))                  # (B,nc,q,q,H)
-    cb = torch.einsum("bcqn,bcsn->bcqs", ccx, bc)             # (B,nc,q,q)
-    w_ = cb[..., None] * dec * dtc[:, :, None, :, :] \
-        * causal[None, None, :, :, None]
-    y_intra = torch.einsum("bcqsh,bcshd->bcqhd", w_, xc)
-
-    # chunk-level input state: sum_s exp(L_Q - L_s) dt_s x_s B_s^T
-    decq = torch.exp(torch.clamp(total - cum, -60.0, 0.0))    # (B,nc,q,H)
-    sin = torch.einsum("bcqh,bcqhd,bcqn->bchdn", decq * dtc, xc, bc)
-
-    # chunk states: st_c = exp(L_Q_c) st_{c-1} + sin_c; chunk c reads the
-    # state coming IN to it
-    chunk_decay = torch.exp(torch.clamp(total[:, :, 0, :], min=-60.0))
-    st = torch.zeros(b, h, hd, n, dtype=torch.float32, device=xh.device)
-    st_in = []
-    for c in range(nc):
-        st_in.append(st)
-        st = st * chunk_decay[:, c, :, None, None] + sin[:, c]
-    st_in = torch.stack(st_in, dim=1)                         # (B,nc,H,hd,N)
-
-    # inter-chunk: y[t] += C_t (exp(L_t) st_in)
-    y_inter = torch.einsum("bcqn,bcqh,bchdn->bcqhd", ccx,
-                           torch.exp(torch.clamp(cum, -60.0, 0.0)), st_in)
-    return (y_intra + y_inter).reshape(b, nc * q, h, hd)[:, :s], st
-
-
-def _ssd_chunked_grouped(xh: Tensor, dt: Tensor, a: Tensor, bb: Tensor,
-                         cc: Tensor, chunk: int):
-    """``_ssd_chunked`` with bb, cc (B, S, G, N): head h reads group
-    h // (H / G), so the heads are laid out (G, H / G) beside their
-    group's B and C, and every group runs in the same passes."""
-    b, s, h, hd = xh.shape
-    g, n = bb.shape[2:]
-    q = chunk
-    nc = -(-s // q)
-    pad = nc * q - s
-    if pad:
-        xh = F.pad(xh, (0, 0, 0, 0, 0, pad))
-        dt = F.pad(dt, (0, 0, 0, pad))
-        bb = F.pad(bb, (0, 0, 0, 0, 0, pad))
-        cc = F.pad(cc, (0, 0, 0, 0, 0, pad))
-    xc = xh.reshape(b, nc, q, g, h // g, hd).float()
-    dtc = dt.reshape(b, nc, q, g, h // g)
-    bc = bb.reshape(b, nc, q, g, n).float()
-    ccx = cc.reshape(b, nc, q, g, n).float()
-
-    cum = torch.cumsum(dtc * a.reshape(g, h // g), dim=2)   # (B,nc,q,G,J)
-    total = cum[:, :, -1:]
-    idx = torch.arange(q, device=xh.device)
-    causal = (idx[:, None] >= idx[None, :])[:, :, None, None]
-    dec = torch.exp(torch.clamp(cum[:, :, :, None] - cum[:, :, None],
-                                -60.0, 0.0))             # (B,nc,q,q,G,J)
-    cb = torch.einsum("bcqgn,bcsgn->bcqsg", ccx, bc)
-    w_ = cb[..., None] * dec * dtc[:, :, None] * causal
-    y_intra = torch.einsum("bcqsgj,bcsgjd->bcqgjd", w_, xc)
-
-    decq = torch.exp(torch.clamp(total - cum, -60.0, 0.0))
-    sin = torch.einsum("bcqgj,bcqgjd,bcqgn->bcgjdn", decq * dtc, xc, bc)
-    chunk_decay = torch.exp(torch.clamp(total[:, :, 0], min=-60.0))
-    st = torch.zeros(b, g, h // g, hd, n, dtype=torch.float32,
-                     device=xh.device)
-    st_in = []
-    for c in range(nc):
-        st_in.append(st)
-        st = st * chunk_decay[:, c, :, :, None, None] + sin[:, c]
-    st_in = torch.stack(st_in, dim=1)                   # (B,nc,G,J,hd,N)
-    y_inter = torch.einsum("bcqgn,bcqgj,bcgjdn->bcqgjd", ccx,
-                           torch.exp(torch.clamp(cum, -60.0, 0.0)), st_in)
-    y = (y_intra + y_inter).reshape(b, nc * q, h, hd)[:, :s]
-    return y, st.reshape(b, h, hd, n)
+    return pspec.on_shards(functools.partial(ref.ssd_scan_ref, chunk=chunk,
+                                             n_groups=1), ins, outs,
+                           xh, dt, a, bb, cc, d_skip)
 
 
 def mamba2_decode_step(params, x: Tensor, state: SSMState, *, d_state: int,

@@ -1,6 +1,8 @@
 """The port stands alone: it imports neither JAX nor the JAX package, and
 its sources, its examples (``examples_torch/``) and chip_smoke.py say
-so."""
+so. Its kernels layer, at the bottom, imports none of the layers above
+it."""
+import ast
 import json
 import os
 import pathlib
@@ -100,3 +102,52 @@ def test_importing_every_example_pulls_in_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert json.loads(res.stdout.strip().splitlines()[-1]) == []
+
+
+# the layers above the kernels, which ``kernels/`` must not import
+ABOVE_KERNELS = ("models", "core", "survival", "serving")
+
+
+def _imported(tree: ast.AST, package: str) -> list:
+    """Every module an ``import`` or ``from ... import`` anywhere in
+    ``tree`` names (inside functions too), relative ones resolved against
+    ``package``; a ``from`` import also names each ``base.name``."""
+    out = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            out += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            parts = package.split(".")
+            if node.level:
+                parts = parts[:len(parts) - node.level + 1]
+            base = ".".join(parts + ([node.module] if node.module else [])
+                            if node.level else [node.module])
+            out += [base] + [f"{base}.{a.name}" for a in node.names]
+    return out
+
+
+def test_kernels_import_no_layer_above_them():
+    """No source under ``kernels/`` imports ``repro_torch.models``,
+    ``core``, ``survival`` or ``serving``, at module level or inside a
+    function: every plain version and route lives beside its kernel."""
+    above = tuple(f"repro_torch.{m}" for m in ABOVE_KERNELS)
+
+    def upward(tree):
+        return sorted({m for m in _imported(tree, "repro_torch.kernels")
+                       if m in above or m.startswith(tuple(
+                           a + "." for a in above))})
+
+    # the check sees the forms an upward import takes
+    probe = ast.parse("import repro_torch.core.cox\n"
+                      "def f():\n    from ..models import ssm\n"
+                      "from .. import survival\n"
+                      "from . import ref\n")
+    assert upward(probe) == ["repro_torch.core.cox", "repro_torch.models",
+                             "repro_torch.models.ssm",
+                             "repro_torch.survival"]
+    sources = sorted((PKG / "kernels").rglob("*.py"))
+    assert PKG / "kernels" / "ssd_scan.py" in sources
+    bad = {str(p.relative_to(ROOT)): upward(ast.parse(p.read_text()))
+           for p in sources}
+    bad = {k: v for k, v in bad.items() if v}
+    assert not bad, bad

@@ -16,10 +16,12 @@ This file imports no JAX: the card's machine has none.
 - a batched call adds C to ``launch_counts()["cox_coord"]``;
 - the batched finetune on the card equals per-candidate plain finetunes
   on the card within float32 tolerances;
-- the SSD scan kernel (``ssd_scan``) against its plain version, the eager
-  form, on the card at mamba2-130m's widths, at a Nemotron-H M layer (8
-  groups, S 4,096), at zamba2's and the reduced configs' shapes, with
-  ragged S and the final state; one launch per Mamba2 layer of a forward.
+- the SSD scan kernel (``ssd_scan``) against its plain version
+  (``ref.ssd_scan_ref``, the eager form), on the card at mamba2-130m's
+  widths, at a Nemotron-H M layer (8 groups, S 4,096), at zamba2's and
+  the reduced configs' shapes, with ragged S and the final state; one
+  launch per Mamba2 layer of a forward, none with gradients; float32 or
+  gradient-needing card inputs refused by the wrapper.
 """
 import numpy as np
 import pytest
@@ -31,9 +33,9 @@ from repro_torch.data.synthetic import (SyntheticSpec,  # noqa: E402
                                         make_correlated_survival,
                                         make_tied_survival)
 from repro_torch import configs  # noqa: E402
-from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels.cox_coord import cox_coord  # noqa: E402
-from repro_torch.models import build_model, ssm  # noqa: E402
+from repro_torch.models import build_model  # noqa: E402
 
 pytestmark = pytest.mark.card
 
@@ -159,13 +161,13 @@ def test_batched_finetune_matches_plain_finetunes(card, kind):
 
 # -- the SSD scan ------------------------------------------------------------
 
-# y against the eager float32 y (TF32 off) before its rounding: the
-# kernel's own rounding to bfloat16 (2^-9 relative, 2^-8 allowing the
+# y against the plain version's float32 y (TF32 off) before its rounding:
+# the kernel's own rounding to bfloat16 (2^-9 relative, 2^-8 allowing the
 # float32 values to straddle a rounding edge), and float32 sums in another
 # order with float32 operands split into bfloat16 halves (~2^-17 relative
 # a term), at most SSD_ATOL of the output's largest value
 SSD_ATOL = 1e-4
-# the final state (float32 both) against the eager state, of its largest
+# the final state (float32 both) against the plain state, of its largest
 # value: L = cumsum(dt A) reaches |L| ~ 600, where a float32 ulp is 6e-5,
 # and exp(L_Q - L_s) carries that error in either summation order (6.2e-5
 # measured at mamba2-130m's widths)
@@ -198,8 +200,9 @@ def test_ssd_scan_against_the_eager_form(card, b, s, h, hd, g, n, q):
     xh, dt, a, bb, cc, d_skip = _ssd_inputs(b, s, h, hd, g, n, card)
     y, st = ops.ssd_scan(xh, dt, a, bb, cc, d_skip, q, g, return_state=True)
     y0, st0 = ops.ssd_scan(xh, dt, a, bb, cc, d_skip, q, g)
-    y32, want_st = ssm._ssd_groups(xh, dt, a, bb, cc, q, g)
-    y32 = y32 + d_skip[None, None, :, None] * xh.float()
+    # the plain version given float32 x, B and C keeps y unrounded
+    y32, want_st = ref.ssd_scan_ref(xh.float(), dt, a, bb.float(),
+                                    cc.float(), d_skip, q, g)
     torch.cuda.synchronize()
     assert y.dtype == torch.bfloat16 and y.shape == (b, s, h, hd)
     assert st0 is None and torch.equal(y0, y)
@@ -207,7 +210,7 @@ def test_ssd_scan_against_the_eager_form(card, b, s, h, hd, g, n, q):
     err = (y.float() - y32).abs() - 2.0 ** -8 * y32.abs()
     assert err.max().item() <= SSD_ATOL * scale, err.max().item() / scale
     # the plain version's own rounding of the same values
-    plain, _ = ssm.ssd_eager(xh, dt, a, bb, cc, d_skip, q, g)
+    plain, _ = ref.ssd_scan_ref(xh, dt, a, bb, cc, d_skip, q, g)
     assert ((y.float() - plain.float()).abs()
             <= 2.0 ** -7 * plain.float().abs() + SSD_ATOL * scale).all()
     assert st.shape == (b, h, hd, n) and st.dtype == torch.float32
@@ -231,6 +234,12 @@ def test_ssd_scan_refuses_a_shape_it_does_not_instantiate(card):
     with pytest.raises(TypeError):
         ops.ssd_scan(xh.float(), dt, a, bb.float(), cc.float(), d_skip, 128,
                      1)
+    with pytest.raises(TypeError):
+        ops.ssd_scan(xh, dt, a, bb.float(), cc.float(), d_skip, 128, 1)
+    # the kernel has no backward: a gradient-needing input is refused
+    with pytest.raises(TypeError):
+        ops.ssd_scan(xh, dt, a, bb, cc, d_skip.clone().requires_grad_(),
+                     128, 1)
     assert ops.launch_counts()["ssd_scan"] == 0
 
 

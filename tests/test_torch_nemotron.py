@@ -18,6 +18,7 @@ sys.path[:0] = [str(ROOT / "src"), str(ROOT), str(ROOT / "tests")]
 
 import reference_nemotron_h as ref  # noqa: E402
 from repro_torch import configs  # noqa: E402
+from repro_torch.kernels import ref as kref  # noqa: E402
 from repro_torch.models import build_model, moe, ssm  # noqa: E402
 from repro_torch.models import transformer as tf  # noqa: E402
 from repro_torch.obs import trace  # noqa: E402
@@ -157,11 +158,12 @@ def test_heads_read_their_own_group():
     xh = _x((b, s, h, hd), 3)
     dt = torch.nn.functional.softplus(_x((b, s, h), 4))
     a = -torch.linspace(1.0, 4.0, h)
+    no_skip = torch.zeros(h)
     bb, cc = _x((b, s, g * n), 5), _x((b, s, g * n), 6)
-    y, _ = ssm._ssd_groups(xh, dt, a, bb, cc, 8, g)
+    y, _ = kref.ssd_scan_ref(xh, dt, a, bb, cc, no_skip, 8, g)
     bb2 = bb.clone()
     bb2[..., n:] += 1.0
-    y2, _ = ssm._ssd_groups(xh, dt, a, bb2, cc, 8, g)
+    y2, _ = kref.ssd_scan_ref(xh, dt, a, bb2, cc, no_skip, 8, g)
     assert torch.equal(y[:, :, :3], y2[:, :, :3])
     assert not torch.allclose(y[:, :, 3:], y2[:, :, 3:])
     ref_y = ref._ssd(xh[0], dt[0], a, bb[0].reshape(s, g, n),
@@ -169,11 +171,12 @@ def test_heads_read_their_own_group():
     torch.testing.assert_close(y[0], ref_y, rtol=RTOL, atol=ATOL)
     # the groups in one pass against each group's heads as a scan alone
     heads = [slice(3 * i, 3 * i + 3) for i in range(g)]
-    ys, sts = zip(*(ssm._ssd(xh[:, :, hs], dt[..., hs], a[hs],
-                             bb[..., n * i:n * i + n],
-                             cc[..., n * i:n * i + n], 8)
+    ys, sts = zip(*(kref.ssd_scan_ref(xh[:, :, hs], dt[..., hs], a[hs],
+                                      bb[..., n * i:n * i + n],
+                                      cc[..., n * i:n * i + n],
+                                      no_skip[hs], 8, 1)
                     for i, hs in enumerate(heads)))
-    _, st = ssm._ssd_groups(xh, dt, a, bb, cc, 8, g)
+    _, st = kref.ssd_scan_ref(xh, dt, a, bb, cc, no_skip, 8, g)
     torch.testing.assert_close(y, torch.cat(ys, 2), rtol=1e-6, atol=1e-6)
     torch.testing.assert_close(st, torch.cat(sts, 1), rtol=1e-6, atol=1e-6)
 
@@ -374,6 +377,32 @@ def test_mamba2_130m_ssd_keeps_its_bits(dtype, digest):
     y1, st1 = ssm.mamba2_decode_step(p, _x((2, 1, cfg.d_model), 5).to(dt),
                                      st, eps=cfg.rms_eps, **kw)
     assert _sha(y, st.conv, st.ssm, y1, st1.conv, st1.ssm) == digest
+
+
+@pytest.mark.parametrize("groups,dtype,digest", [
+    (1, "float32", "7f94f078237bfdea1431103f0022bea1"),
+    (1, "bfloat16", "d8d829a65a8d7736cb87dcaa7371eb3d"),
+    (2, "float32", "2267d9f75e20f2252a4e25ebe1af87fa"),
+    (2, "bfloat16", "97cb52843dbf52da8ab93ae8a8a98097")])
+def test_plain_ssd_keeps_its_bits(groups, dtype, digest):
+    """The plain SSD's y, final state and the gradients of every input, S =
+    37 padding the last chunk of 16: the bits of the one-group form and of
+    the grouped form from before the two were merged into
+    ``ref.ssd_scan_ref``."""
+    dt_ = getattr(torch, dtype)
+    b, s, h, hd, n = 2, 37, 4, 16, 16
+    xh = _x((b, s, h, hd), 10).to(dt_).requires_grad_()
+    dt_raw = _x((b, s, h), 11).requires_grad_()
+    a_log = _x((h,), 12).requires_grad_()
+    bb = _x((b, s, groups * n), 13).to(dt_).requires_grad_()
+    cc = _x((b, s, groups * n), 14).to(dt_).requires_grad_()
+    d_skip = _x((h,), 15).requires_grad_()
+    y, st = kref.ssd_scan_ref(xh, torch.nn.functional.softplus(dt_raw),
+                              -torch.exp(a_log), bb, cc, d_skip, 16, groups)
+    loss = (y.float() * _x(y.shape, 16)).sum() \
+        + (st * _x(st.shape, 17)).sum()
+    grads = torch.autograd.grad(loss, (xh, dt_raw, a_log, bb, cc, d_skip))
+    assert _sha(y, st, *grads) == digest
 
 
 @pytest.mark.parametrize("dtype,capacity,digest", [

@@ -1,11 +1,14 @@
 """The SSD scan kernel's wrapper and its dispatch on the CPU.
 
-``ops.ssd_scan`` on CPU tensors is the eager form of ``models/ssm.py``
-(``_ssd_chunked`` with one group, ``_ssd_chunked_grouped`` with more) plus
-the skip term, rounded to x's dtype, bit for bit; ``mamba2_forward`` sends
-its scan there only for a bfloat16 tensor on a card that is no DTensor and
-needs no gradient, and marks the ``ssm.scan`` span with the path taken.
-The kernel itself is held against the eager form on a card in
+``ops.ssd_scan`` on CPU tensors is its plain version,
+``kernels/ref.py::ssd_scan_ref`` (the chunked scan plus the skip term,
+rounded to x's dtype), bit for bit; its kernel takes only a bfloat16
+tensor on a card that needs no gradient (``ssd_scan.takes_kernel``).
+``mamba2_forward`` sends a scan on the CPU or one the kernel takes to
+``ops.ssd_scan``, runs the plain version itself for DTensors and for the
+card's training and float32 models, and marks the ``ssm.scan`` span with
+the path taken. The kernel itself is held against the plain version on a
+card in
 ``tests/test_torch_kernels_card.py``.
 """
 import json
@@ -18,7 +21,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.kernels import ssd_scan as ssd_mod  # noqa: E402
 from repro_torch.models import ssm  # noqa: E402
 from repro_torch.obs import trace  # noqa: E402
 
@@ -44,18 +48,18 @@ def _inputs(b, s, h, hd, g, n, dtype, seed=0):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("groups,s", [(1, 48), (2, 48), (1, 37), (2, 37)])
 def test_plain_version_is_the_eager_form_bit_for_bit(dtype, groups, s):
-    """One group goes through ``_ssd_chunked``, two through
-    ``_ssd_chunked_grouped``; S = 37 pads the last chunk of 16."""
+    """``ops.ssd_scan`` on the CPU is ``ref.ssd_scan_ref``, one group or
+    two; S = 37 pads the last chunk of 16. Unrounded, the plain version is
+    the float32 scan plus the skip term."""
     dt_ = getattr(torch, dtype)
     xh, dt, a, bb, cc, d_skip = _inputs(2, s, 4, 8, groups, 6, dt_)
+    ops.reset_launch_counts()
     y, st = ops.ssd_scan(xh, dt, a, bb, cc, d_skip, 16, groups)
-    if groups == 1:
-        want_y, want_st = ssm._ssd_chunked(xh, dt, a, bb, cc, 16)
-    else:
-        want_y, want_st = ssm._ssd_chunked_grouped(
-            xh, dt, a, bb.reshape(2, s, groups, 6),
-            cc.reshape(2, s, groups, 6), 16)
-    want_y = (want_y + d_skip[None, None, :, None] * xh.float()).to(dt_)
+    want_y, want_st = ref.ssd_scan_ref(xh, dt, a, bb, cc, d_skip, 16,
+                                       groups)
+    y32, st32 = ref.ssd_scan_ref(xh.float(), dt, a, bb.float(), cc.float(),
+                                 d_skip, 16, groups)
+    assert torch.equal(y32.to(dt_), want_y) and torch.equal(st32, want_st)
     assert y.dtype == dt_ and y.shape == xh.shape
     assert torch.equal(y, want_y)
     assert torch.equal(st, want_st)
@@ -86,7 +90,7 @@ def _stand_in(is_cuda=True, dtype=torch.bfloat16, requires_grad=False):
 def test_dispatch_reads_the_inputs(case, grad, want):
     """A bfloat16 card tensor takes the kernel unless a gradient is needed:
     grad mode on and some input requiring one (the skip parameter
-    included); the CPU and float32 keep the eager form."""
+    included); the CPU and float32 take the plain version."""
     xh = _stand_in(is_cuda=case != "cpu",
                    dtype=torch.float32 if case == "float32"
                    else torch.bfloat16,
@@ -94,7 +98,7 @@ def test_dispatch_reads_the_inputs(case, grad, want):
     others = [_stand_in(), _stand_in(
         requires_grad=case == "param_requires_grad")]
     with torch.set_grad_enabled(grad):
-        assert ssm._takes_kernel(xh, *others) is want
+        assert ssd_mod.takes_kernel(xh, *others) is want
 
 
 def _params(d_model=32, d_state=16, head_dim=16, dtype=torch.bfloat16):
@@ -125,11 +129,14 @@ def test_forward_on_the_cpu_takes_the_eager_path(tmp_path, grad):
     p = _params()
     x = _x((2, 40, 32), 4).to(torch.bfloat16)
     ops.reset_launch_counts()
+    plain = ops._M_DISPATCH.value(kernel="ssd_scan", route="plain")
     with torch.set_grad_enabled(grad):
         (y, st), paths = _scan_paths(tmp_path, lambda: ssm.mamba2_forward(
             p, x, d_state=16, head_dim=16, chunk=16, return_state=True))
     assert paths == ["eager"]
     assert ops.launch_counts()["ssd_scan"] == 0
+    assert ops._M_DISPATCH.value(kernel="ssd_scan",
+                                 route="plain") == plain + 1
     assert y.requires_grad is grad
     assert y.shape == x.shape and st.ssm.shape == (2, 4, 16, 16)
 
