@@ -204,8 +204,10 @@ Phases, each printed as it runs; any failed check raises:
      mixtral's MoE at 2 layers against its float32 twin teacher-forced to
      the tokens and the expert routes (MOE_TWIN_RTOL); qwen2-vl's prefill
      from embeddings with 3-D M-RoPE positions. Its counts, zeroed before
-     it and read after it: ssd_scan alone (zamba2's bfloat16 full-sequence
-     forwards, a multiple of its 54 Mamba2 layers), every other kernel 0.
+     it and read after it: ssd_scan (zamba2's bfloat16 full-sequence
+     forwards, a multiple of its 54 Mamba2 layers) and flash_attn (the
+     causal bfloat16 self-attention of seamless-m4t's decoder and
+     qwen2-vl, at least qwen2-vl's 28 layers), every other kernel 0.
   15. the entry points and the tools, last: the five twins of the
      reference's examples (``examples_torch/``) on the card at the
      reference's sizes, through their ``main`` as a user runs them:
@@ -252,8 +254,9 @@ Phases, each printed as it runs; any failed check raises:
      tokens compared, the logits of the prefill and of every decode step
      whose inputs were equal and the last caches held by phase 14's
      bfloat16 rule (DECODE_BF16_RTOL), then seconds a decode step of both,
-     in turns. No kernel launches on this path: its counts, zeroed before
-     (a) and read after (d), are 0.
+     in turns. Its counts, zeroed before (a) and read after (d): only
+     flash_attn, once a layer of each served prefill (plain and on the
+     mesh's local shards), every other kernel 0.
 
 Phase 2 also holds revcumsum at the selection path's (262,144, 1,000) and
 (262,144, block) panels and lipschitz at (262,144, 15) against their plain
@@ -265,7 +268,12 @@ served bucket b = 1..64, and ssd_scan against the eager SSD at both
 featurize cells' shapes (mamba2-130m's 128 x 512 tokens of 24 heads, a
 Nemotron-H M layer's 4 x 4,096 of 64 heads in 8 groups), a ragged S and
 its other instantiated shapes; phase 8 times it at both cells' shapes
-(the kernels line's "cells"). Kernel launch counts are zeroed just before each
+(the kernels line's "cells"). flash_attn is held against the plain
+streaming softmax at Nemotron-H's attention shape (4 x 4,096 tokens, 32
+query heads of 128 over 2 KV heads), ragged S, G = 1, 4 and 16 and both
+head dims, and phase 8 times it there beside
+``scaled_dot_product_attention`` (``library_ms``, a yardstick the port
+never calls). Kernel launch counts are zeroed just before each
 path (phases 3-5, 5b, 11's two services, 7, 9's two calls, 10, 12, 13,
 14, each example of 15 and 16) and read just after it. The line before
 the last but eight is one JSON object with phase 11's numbers, then one with
@@ -515,6 +523,17 @@ SSD_STATE_TOL = 5e-4     # the final state against the eager state, of its
                          # float32 ulp is 6e-5, and exp(L_Q - L_s) carries
                          # that error in either summation order
 BF16_PEAK = 989e12       # dense bfloat16 tensor-core rate of an H100 SXM
+# the causal GQA flash-attention kernel (flash_attn, replaces no TPU
+# kernel) at Nemotron-H's attention layer, (batch, S, heads, KV heads,
+# head_dim), timed and checked; then ragged S, G = 1 and 16 and head_dim
+# 64, checked
+FA_CELL = (4, 4_096, 32, 2, 128)
+FA_CHECKS = ((2, 1_000, 16, 16, 128), (2, 127, 16, 1, 64),
+             (1, 4_097, 16, 4, 64))
+FA_ATOL = 2.0 ** -9 * 1.05  # o against the plain version's float32 o beyond
+                            # its rounding to bfloat16 (2^-8 |o|), of max |v|:
+                            # P rounded to bfloat16 moves o by at most 2^-9
+                            # max |v|; float32 sums in another order, exp2
 
 # the TPU kernel each CUDA kernel replaces (its pallas_call), and the path
 # whose launch count the kernels line reports
@@ -556,12 +575,14 @@ REPLACES = {
     "survival_curves_stratified": "src/repro/kernels/survival_curves.py:98",
     "ssd_scan": "none: the JAX package's SSD is plain jnp "
                 "(src/repro/models/ssm.py::_ssd_chunked)",
+    "flash_attn": "none: the JAX package's attention is plain jnp "
+                  "(src/repro/models/layers.py::flash_attention)",
 }
 PATH_OF = {"cox_coord": "fit and serve", "lipschitz": "fit and serve",
            "survival_curves": "fit and serve",
            "survival_curves_stratified": "stratified scoring",
            "revcumsum": "streaming fit", "cox_batch": "streaming fit",
-           "ssd_scan": "deep survival"}
+           "ssd_scan": "deep survival", "flash_attn": "decode"}
 
 
 def log(msg: str) -> None:
@@ -3329,8 +3350,9 @@ def decode_phase() -> dict:
     """Phase 14: batched decode through ``launch.serve.serve_batch`` for
     DECODE_CASES at their published widths, each architecture freed
     before the next. The kernel counts are zeroed before and read after:
-    only zamba2's bfloat16 full-sequence forwards reach a kernel
-    (ssd_scan)."""
+    zamba2's bfloat16 full-sequence forwards reach ssd_scan, and the
+    causal self-attention of seamless-m4t's decoder and qwen2-vl
+    flash_attn."""
     import torch
 
     from repro_torch.configs import get_config
@@ -3350,7 +3372,17 @@ def decode_phase() -> dict:
     check(scans >= 2 * zamba and scans % zamba == 0,
           f"decode path: {scans} ssd_scan launches, not a multiple of "
           f"zamba2's {zamba} Mamba2 layers")
-    _check_counts("decode path", launches, {"ssd_scan": scans})
+    # the bfloat16 full-sequence forwards of causal self-attention with no
+    # window and head_dim 64 or 128 (seamless-m4t's decoder, qwen2-vl) take
+    # the flash-attention kernel, once a layer a forward; mixtral's (a
+    # window), gemma3's (head_dim 256), zamba2's (80), the encoder's and
+    # the float32 twins' run the plain version
+    attn = launches["flash_attn"]
+    vl = get_config("qwen2-vl-7b").n_layers
+    check(attn >= vl, f"decode path: {attn} flash_attn launches, fewer than "
+          f"qwen2-vl's {vl} attention layers")
+    _check_counts("decode path", launches, {"ssd_scan": scans,
+                                            "flash_attn": attn})
     out["launches"] = launches
     out["seconds"] = time.perf_counter() - t0
     torch.cuda.empty_cache()
@@ -3920,10 +3952,13 @@ def mesh_phase() -> dict:
     """Phase 16: the mesh dry run's 40 cells in processes of their own,
     and beside them on a (1, 1) mesh over a one-rank NCCL world the
     sharded train step, the microbatched one and sharded serving, each
-    against its plain twin. No kernel of the six runs: the counts, zeroed
-    before the first and read after the last, are 0."""
+    against its plain twin. Only flash_attn runs, in the served prefills
+    (qwen2.5-3b's causal bfloat16 attention, once a layer, on the mesh's
+    local shards too): the other counts, zeroed before the first and read
+    after the last, are 0."""
     import torch.distributed as dist
 
+    from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.launch import mesh as mesh_lib
 
@@ -3939,9 +3974,12 @@ def mesh_phase() -> dict:
         out = {"step": _sharded_step(mesh),
                "microbatched_step": _sharded_step(mesh, MESH_MICROBATCH),
                "serve": _sharded_serve(mesh)}
-        out["launches"] = ops.launch_counts()
-        check(not any(out["launches"].values()),
-              f"kernels launched on the mesh: {out['launches']}")
+        out["launches"] = got = ops.launch_counts()
+        layers = get_config(MESH_SERVE_ARCH).n_layers
+        check(got["flash_attn"] >= 2 * layers
+              and got["flash_attn"] % layers == 0
+              and not any(n for k, n in got.items() if k != "flash_attn"),
+              f"kernels launched on the mesh: {got}")
         dist.destroy_process_group()
         out["dryrun"] = _mesh_dryrun(procs, started)
     finally:
@@ -4360,6 +4398,93 @@ def ssd_timings() -> dict:
     return {"times": times, "cells": cells}
 
 
+def _fa_inputs(b, s, h, kh, hd, seed=0):
+    """q (B, S, H, hd) and k, v (B, S, KH, hd) bfloat16 on the card."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return tuple(torch.randn(b, s, n, hd, device="cuda", generator=gen)
+                 .to(torch.bfloat16) for n in (h, kh, kh))
+
+
+def check_flash_attn() -> float:
+    """flash_attn against its plain version (``ref.flash_attention_ref``)
+    given the same values in float32 (TF32 off), at Nemotron-H's attention
+    shape, ragged S, G = 1, 4, 16 and both head dims: o within FA_ATOL
+    beyond its bfloat16 rounding, the same bits twice; then one call's
+    launch shape. Returns the largest |o - plain o| (both bfloat16)."""
+    import torch
+
+    from repro_torch.kernels import flash_attn, ops, ref
+
+    worst = 0.0
+    for b, s, h, kh, hd in (FA_CELL, *FA_CHECKS):
+        q, k, v = _fa_inputs(b, s, h, kh, hd)
+        with torch.no_grad():
+            o = ops.flash_attn(q, k, v)
+            same = torch.equal(o, ops.flash_attn(q, k, v))
+            o32 = ref.flash_attention_ref(q.float(), k.float(), v.float())
+        vmax = float(v.float().abs().max())
+        err = float(((o.float() - o32).abs() - 2.0 ** -8 * o32.abs()).max())
+        plain_err = float((o.float() - o32.to(o.dtype).float()).abs().max())
+        flips = float((o != o32.to(o.dtype)).float().mean())
+        worst = max(worst, plain_err)
+        log(f"  flash_attn at (B, S, H, KH, hd) = {(b, s, h, kh, hd)}: "
+            f"|o - o32| beyond 2^-8 |o32| {err / vmax:.3e} of max |v| (tol "
+            f"{FA_ATOL:.2e}); |o - plain o| max {plain_err:.3e}, "
+            f"{flips:.3%} of values another bfloat16; same bits twice: "
+            f"{same}")
+        check(err <= FA_ATOL * vmax and same,
+              f"flash_attn at {(b, s, h, kh, hd)}")
+        del q, k, v, o, o32
+    q, k, v = _fa_inputs(*FA_CHECKS[0])
+    check_launch_shape("flash_attn", lambda: ops.flash_attn(q, k, v),
+                       flash_attn.KERNELS_PER_CALL, "flash_attn")
+    torch.cuda.empty_cache()
+    return worst
+
+
+def flash_attn_timings() -> dict:
+    """flash_attn at Nemotron-H's attention shape: its CUDA-events median
+    and device time a call, the plain version's, and its bound (the causal
+    q k^T and P v, 2 H hd (S + 1) operations a token at the bfloat16
+    tensor-core rate, or q, k, v and o moved once at 3.35 TB/s, the
+    larger); ``library_ms`` is one call of ``scaled_dot_product_attention``
+    on the same tensors, a yardstick the port never calls."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.analysis import roofline as rl
+    from repro_torch.kernels import ops, ref
+
+    b, s, h, kh, hd = FA_CELL
+    q, k, v = _fa_inputs(b, s, h, kh, hd)
+    nbytes = 2 * b * s * hd * (2 * h + 2 * kh)
+    flops = 2 * h * hd * (s + 1) * b * s
+    t_bytes, t_ops = nbytes / rl.HBM_BYTES_PER_S, flops / BF16_PEAK
+    bound = (max(t_bytes, t_ops) * 1e3,
+             "bytes" if t_bytes >= t_ops else "operations")
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    with torch.no_grad():
+        kern = kernel_ms(lambda i: ops.flash_attn(q, k, v), reps=20)
+        plain = kernel_ms(lambda i: ref.flash_attention_ref(q, k, v),
+                          reps=2, rounds=3)
+        library = events_ms(lambda i: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True), reps=20)
+    log(f"  flash_attn at Nemotron-H's attention shape {FA_CELL}: median "
+        f"{kern[0]:.4f} ms a call by CUDA events, device time "
+        f"{kern[1]:.4f} ms; plain version {plain[0]:.3f} ms, device "
+        f"{plain[1]:.3f} ms; scaled_dot_product_attention (yardstick) "
+        f"{library:.4f} ms; bound {bound[0]:.4f} ms by {bound[1]} "
+        f"({nbytes / 1e6:.0f} MB at 3.35 TB/s, {flops / 1e9:.1f} GFLOP at 989 "
+        f"TFLOP/s) -> the events median at {bound[0] / kern[0]:.1%} of "
+        f"bound (the profiler's device time reads low, as for ssd_scan)")
+    del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+    return {"times": (kern, plain, bound), "library_ms": library,
+            "shape": list(FA_CELL), "bytes": nbytes, "flops": flops}
+
+
 def stream_timings(strat_h0) -> tuple:
     """(times as timings() gives them, library-call ms) of revcumsum and
     cox_batch at one streaming chunk's panel and of the stratified curves
@@ -4761,6 +4886,7 @@ def main() -> int:
     errs["revcumsum"] = max(errs["revcumsum"], check_selection_scans(
         selection_scan_shapes()))
     errs["ssd_scan"] = check_ssd_scan()
+    errs["flash_attn"] = check_flash_attn()
 
     t0 = time.perf_counter()
     x, t, delta, beta_star = make_correlated_survival(
@@ -4808,6 +4934,9 @@ def main() -> int:
     ssd = ssd_timings()
     times["ssd_scan"] = ssd["times"]
     library["ssd_scan"] = None
+    fa = flash_attn_timings()
+    times["flash_attn"] = fa["times"]
+    library["flash_attn"] = fa["library_ms"]
     log("  seconds per streaming epoch: "
         + ", ".join(f"{m} {s:.4f} (device idle {stream['idle'][m]:.1%})"
                     for m, s in stream["epoch_s"].items())

@@ -33,6 +33,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_LL = ctypes.c_longlong
 # name -> (restype, argtypes) of every C entry point
 _SIGNATURES = {
     "repro_error_string": (ctypes.c_char_p, [_I]),
@@ -55,6 +56,8 @@ _SIGNATURES = {
     "repro_ssd_scan": (_I, [_P, ctypes.c_longlong, _I, _P, _P,
                             ctypes.c_longlong, _I, _P, _P, _P, _P, _P, _I, _I,
                             _I, _I, _I, _I, _I, _P]),
+    "repro_flash_attn": (_I, [_P, _LL, _LL, _LL, _P, _LL, _LL, _LL, _P, _LL,
+                              _LL, _LL, _P, _I, _I, _I, _I, _I, _P]),
 }
 
 _LOCK = threading.Lock()

@@ -11,8 +11,9 @@ serving threads launch from several host threads) count the calls that
 launched their kernels and nothing else; a call may be several launches
 (every wrapper module states its own in ``KERNELS_PER_CALL``:
 ``cox_coord`` 2, ``revcumsum`` 1 or 2 by layout, ``cox_batch``,
-``lipschitz``, both curve kernels and ``ssd_scan`` 1). A ``cox_coord``
-call over C candidates counts C, one a candidate coordinate, in both.
+``lipschitz``, both curve kernels, ``ssd_scan`` and ``flash_attn`` 1). A
+``cox_coord`` call over C candidates counts C, one a candidate coordinate,
+in both.
 
 Each kernel picks its own launch shape; the curve kernels read theirs
 (``blocks_per_sm``) from ``autotune.knob``, the default where untuned.
@@ -27,6 +28,7 @@ from ..obs import metrics as obs_metrics
 from . import _build
 from . import cox_batch as _cox_batch
 from . import cox_coord as _cox_coord
+from . import flash_attn as _flash_attn
 from . import lipschitz as _lipschitz
 from . import ref
 from . import revcumsum as _revcumsum
@@ -41,7 +43,8 @@ _M_DISPATCH = obs_metrics.REGISTRY.counter(
 
 # every wrapper's kernel, by the name its launches count under
 KERNELS = ("cox_coord", "lipschitz", "survival_curves", "revcumsum",
-           "cox_batch", "survival_curves_stratified", "ssd_scan")
+           "cox_batch", "survival_curves_stratified", "ssd_scan",
+           "flash_attn")
 
 
 def _count(kernel: str, t: Tensor, calls: int = 1) -> None:
@@ -159,3 +162,11 @@ def ssd_scan(xh: Tensor, dt: Tensor, a: Tensor, bb: Tensor, cc: Tensor,
     _count("ssd_scan", xh)
     return _ssd_scan.ssd_scan(xh, dt, a, bb, cc, d_skip, chunk, n_groups,
                               return_state)
+
+
+def flash_attn(q: Tensor, k: Tensor, v: Tensor) -> Tensor:
+    """Causal GQA over the whole sequence, o (B, S, H, hd) in q's dtype,
+    query head h reading KV head h // (H / KH)
+    (``flash_attn.flash_attn``)."""
+    _count("flash_attn", q)
+    return _flash_attn.flash_attn(q, k, v)

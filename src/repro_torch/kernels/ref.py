@@ -3,7 +3,8 @@
 on the CPU, and the tests and ``chip_smoke.py`` hold the CUDA kernels
 against these. They mirror the JAX package's oracles
 (``repro/kernels/ref.py``) and compute in float32, or in float64 when
-given float64; ``ssd_scan_ref``, with no oracle there, in float32.
+given float64; ``ssd_scan_ref`` and ``flash_attention_ref``, with no
+oracle there, in float32.
 
 ``cox_coord_ref`` and ``lipschitz_ref`` also take ``risk_start``, the first
 index of each sample's tie group, and read each risk set there, as the
@@ -193,3 +194,57 @@ def ssd_scan_ref(xh: Tensor, dt: Tensor, a: Tensor, bb: Tensor, cc: Tensor,
                            torch.exp(torch.clamp(cum, -60.0, 0.0)), st_in)
     y = (y_intra + y_inter).reshape(b, nc * q, h, hd)[:, :s] + skip
     return y.to(xh.dtype), st.reshape(b, h, hd, n)
+
+
+def flash_attention_ref(q: Tensor, k: Tensor, v: Tensor, *,
+                        causal: bool = True, window: int = -1,
+                        q_chunk: int = 1024, kv_chunk: int = 1024,
+                        kv_len: Optional[Tensor] = None) -> Tensor:
+    """Chunked streaming-softmax attention, in float32.
+
+    q: (B, Sq, H, hd); k, v: (B, Skv, KH, hd) with H = KH * G (GQA: query
+    head h reads KV head h // G). window: -1/0 => full; w > 0 => keys with
+    qpos - kpos >= w are masked (sliding window). kv_len: optional (B,)
+    valid KV length. Masked scores are -1e30 and the output divides by
+    max(l, 1e-30), as the reference's. Blocks start at multiples of the
+    chunks, as the reference's do; the last block of each axis is ragged
+    where the reference pads it (its padded rows are masked or dropped, so
+    no value changes), and a chunk longer than the sequence is one block.
+    Memory: O(q_chunk * kv_chunk) scores per step instead of O(Sq * Skv).
+    """
+    b, sq, h, hd = q.shape
+    skv, kh = k.shape[1], k.shape[2]
+    g = h // kh
+    scale = hd ** -0.5
+    dev = q.device
+    qf = q.float().reshape(b, sq, kh, g, hd)
+    kf, vf = k.float(), v.float()
+    limit = (torch.full((1, 1), skv, device=dev) if kv_len is None
+             else kv_len.to(dev)[:, None])                  # (B or 1, 1)
+    out = torch.empty(b, sq, kh, g, hd, dtype=torch.float32, device=dev)
+    for q0 in range(0, sq, q_chunk):
+        qi = qf[:, q0:q0 + q_chunk]
+        qpos = torch.arange(q0, q0 + qi.shape[1], device=dev)
+        m = torch.full(qi.shape[:-1], -torch.inf, device=dev)
+        l = torch.zeros(qi.shape[:-1], device=dev)
+        acc = torch.zeros(qi.shape, device=dev)
+        for k0 in range(0, skv, kv_chunk):
+            kj, vj = kf[:, k0:k0 + kv_chunk], vf[:, k0:k0 + kv_chunk]
+            kpos = torch.arange(k0, k0 + kj.shape[1], device=dev)
+            s_ = torch.einsum("bqkgd,bckd->bqkgc", qi, kj) * scale
+            mask = (kpos[None, :] < limit)[:, None, None, None, :]
+            if causal:
+                cm = kpos[None, :] <= qpos[:, None]           # (cq, ck)
+                if window > 0:
+                    cm = cm & (qpos[:, None] - kpos[None, :] < window)
+                mask = mask & cm[None, :, None, None, :]
+            s_ = torch.where(mask, s_, -1e30)
+            m_new = torch.maximum(m, s_.amax(dim=-1))
+            p = torch.exp(s_ - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bqkgc,bckd->bqkgd", p, vj)
+            m = m_new
+        out[:, q0:q0 + q_chunk] = acc / torch.clamp_min(l, 1e-30)[..., None]
+    return out.reshape(b, sq, h, hd).to(q.dtype)

@@ -10,9 +10,12 @@ and tensors, so the reference's param tree carries across by name
 (bfloat16 in production), accumulation float32 where the reference's is:
 each function rounds back to the model dtype where the reference does.
 
-``flash_attention`` is the reference's streaming-softmax algorithm in plain
-PyTorch, blocked by ``q_chunk`` and ``kv_chunk`` as the reference is; the
-reference has no hand kernel here either. ``flash_attention``'s
+``flash_attention`` routes; the work lives in the kernels layer. Its plain
+version, the reference's streaming-softmax algorithm blocked by ``q_chunk``
+and ``kv_chunk`` as the reference is, is ``kernels/ref.py::
+flash_attention_ref``; causal bfloat16 inference on a card runs the hand
+kernel ``kernels/csrc/flash_attn.cu`` through ``kernels/flash_attn.py``
+(the reference's attention is plain ``jnp``). ``flash_attention``'s
 ``q_offset``, which no caller of the reference passes, is left out.
 """
 from __future__ import annotations
@@ -25,6 +28,8 @@ import torch.nn.functional as F
 from torch import nn
 from torch.distributed.tensor import DTensor
 
+from ..kernels import flash_attn as flash_kernel
+from ..kernels import ops, ref
 from . import pspec
 
 Tensor = torch.Tensor
@@ -153,17 +158,16 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
                     window: int = -1, q_chunk: int = 1024,
                     kv_chunk: int = 1024,
                     kv_len: Optional[Tensor] = None) -> Tensor:
-    """Chunked streaming-softmax attention, in float32.
+    """Attention of q (B, Sq, H, hd) over k, v (B, Skv, KH, hd), H = KH * G
+    (GQA: query head h reads KV head h // G), in q's dtype. window: -1/0
+    => full; w > 0 => keys with qpos - kpos >= w are masked (sliding
+    window). kv_len: optional (B,) valid KV length.
 
-    q: (B, Sq, H, hd); k, v: (B, Skv, KH, hd) with H = KH * G (GQA: query
-    head h reads KV head h // G). window: -1/0 => full; w > 0 => keys with
-    qpos - kpos >= w are masked (sliding window). kv_len: optional (B,)
-    valid KV length. Masked scores are -1e30 and the output divides by
-    max(l, 1e-30), as the reference's. Blocks start at multiples of the
-    chunks, as the reference's do; the last block of each axis is ragged
-    where the reference pads it (its padded rows are masked or dropped, so
-    no value changes), and a chunk longer than the sequence is one block.
-    Memory: O(q_chunk * kv_chunk) scores per step instead of O(Sq * Skv).
+    Decided once, by ``flash_attn.takes_kernel``: causal bfloat16 attention
+    on a card with no window, no ``kv_len`` and no gradient goes to the
+    kernel (``ops.flash_attn``); everything else runs the float32 streaming
+    softmax ``ref.flash_attention_ref``, blocked by ``q_chunk`` and
+    ``kv_chunk`` as the reference is.
     """
     if isinstance(q, DTensor):
         # independent over batch and KV heads: each device runs this body
@@ -179,42 +183,12 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
         return pspec.on_shards(functools.partial(
             flash_attention, causal=causal, window=window, q_chunk=q_chunk,
             kv_chunk=kv_chunk), ins, [ins[0]], q, k, v)
-    b, sq, h, hd = q.shape
-    skv, kh = k.shape[1], k.shape[2]
-    g = h // kh
-    scale = hd ** -0.5
-    dev = q.device
-    qf = q.float().reshape(b, sq, kh, g, hd)
-    kf, vf = k.float(), v.float()
-    limit = (torch.full((1, 1), skv, device=dev) if kv_len is None
-             else kv_len.to(dev)[:, None])                  # (B or 1, 1)
-    out = torch.empty(b, sq, kh, g, hd, dtype=torch.float32, device=dev)
-    for q0 in range(0, sq, q_chunk):
-        qi = qf[:, q0:q0 + q_chunk]
-        qpos = torch.arange(q0, q0 + qi.shape[1], device=dev)
-        m = torch.full(qi.shape[:-1], -torch.inf, device=dev)
-        l = torch.zeros(qi.shape[:-1], device=dev)
-        acc = torch.zeros(qi.shape, device=dev)
-        for k0 in range(0, skv, kv_chunk):
-            kj, vj = kf[:, k0:k0 + kv_chunk], vf[:, k0:k0 + kv_chunk]
-            kpos = torch.arange(k0, k0 + kj.shape[1], device=dev)
-            s_ = torch.einsum("bqkgd,bckd->bqkgc", qi, kj) * scale
-            mask = (kpos[None, :] < limit)[:, None, None, None, :]
-            if causal:
-                cm = kpos[None, :] <= qpos[:, None]           # (cq, ck)
-                if window > 0:
-                    cm = cm & (qpos[:, None] - kpos[None, :] < window)
-                mask = mask & cm[None, :, None, None, :]
-            s_ = torch.where(mask, s_, -1e30)
-            m_new = torch.maximum(m, s_.amax(dim=-1))
-            p = torch.exp(s_ - m_new[..., None])
-            corr = torch.exp(m - m_new)
-            l = l * corr + p.sum(dim=-1)
-            acc = acc * corr[..., None] + torch.einsum(
-                "bqkgc,bckd->bqkgd", p, vj)
-            m = m_new
-        out[:, q0:q0 + q_chunk] = acc / torch.clamp_min(l, 1e-30)[..., None]
-    return out.reshape(b, sq, h, hd).to(q.dtype)
+    if flash_kernel.takes_kernel(q, k, v, causal=causal, window=window,
+                                 kv_len=kv_len):
+        return ops.flash_attn(q, k, v)
+    return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                   q_chunk=q_chunk, kv_chunk=kv_chunk,
+                                   kv_len=kv_len)
 
 
 def decode_attention(q: Tensor, k_cache: Tensor, v_cache: Tensor,

@@ -22,6 +22,7 @@ from torch import nn
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from ..configs.base import ModelConfig
+from ..kernels import flash_attn as flash_kernel
 from ..obs import trace
 from . import layers, moe, pspec
 from .layers import apply_rope, decode_attention, flash_attention, mlp, \
@@ -151,10 +152,18 @@ def attention_mixer(p, cfg: ModelConfig, h: Tensor) -> Tensor:
     """Nemotron-H's attention layer on its pre-normed input h (B, S, D):
     causal GQA over the whole sequence and the output projection, with no
     rotary embedding (the Mamba2 layers carry position) and no MLP. Span
-    ``attn.mix`` with the card's time."""
+    ``attn.mix`` with the card's time; its ``path`` is "kernel" where
+    ``flash_attn.takes_kernel`` holds for q, k and v (for DTensors, their
+    local shards, which ``flash_attention`` attends one by one), else
+    "eager"."""
     b, s, _ = h.shape
-    with trace.span("attn.mix", device_time=True):
+    with trace.span("attn.mix", device_time=True) as sp:
         q, k, v = qkv_project(p, h, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim)
+        local = [t.to_local() if isinstance(t, DTensor) else t
+                 for t in (q, k, v)]
+        kernel = flash_kernel.takes_kernel(*local, causal=True, window=-1,
+                                           kv_len=None)
+        sp.set(path="kernel" if kernel else "eager")
         o = flash_attention(q, k, v, causal=True, q_chunk=cfg.q_chunk,
                             kv_chunk=cfg.kv_chunk)
         return o.reshape(b, s, -1) @ p["wo"]

@@ -525,9 +525,12 @@ def test_cpu_tensors_take_plain_path_and_count_no_launch():
     ops.ssd_scan(xbc[..., :8].reshape(1, 5, 2, 4), torch.ones(1, 5, 2),
                  -torch.ones(2), xbc[..., 8:16], xbc[..., 16:],
                  torch.ones(2), 4, 1)
+    ops.flash_attn(torch.ones(1, 5, 4, 16), torch.ones(1, 5, 2, 16),
+                   torch.ones(1, 5, 2, 16))
     assert ops.launch_counts() == dict.fromkeys(
         ("cox_coord", "lipschitz", "survival_curves", "revcumsum",
-         "cox_batch", "survival_curves_stratified", "ssd_scan"), 0)
+         "cox_batch", "survival_curves_stratified", "ssd_scan",
+         "flash_attn"), 0)
     assert counter.value(kernel="cox_coord", route="plain") == before + 1
 
 
@@ -608,11 +611,12 @@ def test_build_digest_covers_every_source():
     names = {p.name for p in _build.CSRC.glob("*.cu*")}
     assert {"cox_coord.cu", "lipschitz.cu", "survival_curves.cu",
             "revcumsum.cu", "cox_batch.cu", "survival_curves_stratified.cu",
-            "ssd_scan.cu", "common.cuh"} <= names
+            "ssd_scan.cu", "flash_attn.cu", "common.cuh"} <= names
     assert set(_build._SIGNATURES) >= {
         "repro_cox_coord", "repro_lipschitz", "repro_survival_curves",
         "repro_revcumsum", "repro_cox_batch",
-        "repro_survival_curves_stratified", "repro_ssd_scan"}
+        "repro_survival_curves_stratified", "repro_ssd_scan",
+        "repro_flash_attn"}
     # every C entry point is defined in some source
     text = "".join(p.read_text() for p in _build.CSRC.glob("*.cu"))
     for name in _build._SIGNATURES:

@@ -21,8 +21,16 @@ This file imports no JAX: the card's machine has none.
   widths, at a Nemotron-H M layer (8 groups, S 4,096), at zamba2's and
   the reduced configs' shapes, with ragged S and the final state; one
   launch per Mamba2 layer of a forward, none with gradients; float32 or
-  gradient-needing card inputs refused by the wrapper.
+  gradient-needing card inputs refused by the wrapper;
+- the causal GQA flash-attention kernel (``flash_attn``) against its
+  plain version (``ref.flash_attention_ref``) at Nemotron-H's attention
+  shape and at ragged S over G = 1, 4 and 16 and both head dims, the same
+  bits twice; one launch and ``path="kernel"`` a Nemotron-H attention
+  layer; what ``takes_kernel`` refuses runs the plain version without a
+  launch, and the wrapper raises on it.
 """
+import json
+
 import numpy as np
 import pytest
 
@@ -35,7 +43,9 @@ from repro_torch.data.synthetic import (SyntheticSpec,  # noqa: E402
 from repro_torch import configs  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels.cox_coord import cox_coord  # noqa: E402
-from repro_torch.models import build_model  # noqa: E402
+from repro_torch.models import build_model, layers  # noqa: E402
+from repro_torch.models import transformer as tf  # noqa: E402
+from repro_torch.obs import trace  # noqa: E402
 
 pytestmark = pytest.mark.card
 
@@ -276,3 +286,138 @@ def test_a_forward_launches_once_a_mamba2_layer(card, arch, layers):
     # bfloat16 activations rounded in the same places; the scans' sums in
     # other orders flip a rounding here and there, compounded over layers
     assert rel < 2e-2, rel
+
+
+# o against the plain version given float32 q, k and v (its o unrounded),
+# beyond the kernel's one rounding of o to bfloat16 (2^-8 |o|, the values
+# straddling a rounding edge), of max |v|: P is rounded to bfloat16 for the
+# P V product, each weight by at most 2^-9 of itself, which moves o by at
+# most 2^-9 sum_s p_s |v_s| / l <= 2^-9 max |v|; the float32 sums in
+# another order and exp2 for exp add ~1e-6
+FA_ATOL = 2.0 ** -9 * 1.05
+
+
+def _fa_inputs(b, s, h, kh, hd, card, fused=True, seed=0):
+    """q (B, S, H, hd) and k, v (B, S, KH, hd) bfloat16: strided views of
+    one (B, S, (H + 2 KH) hd) projection, or three tensors as Nemotron-H's
+    separate projections give them."""
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    if not fused:
+        return tuple(torch.randn(b, s, n, hd, generator=gen).to(
+            card, torch.bfloat16) for n in (h, kh, kh))
+    qkv = torch.randn(b, s, (h + 2 * kh) * hd, generator=gen).to(
+        card, torch.bfloat16)
+    return (qkv[..., :h * hd].reshape(b, s, h, hd),
+            qkv[..., h * hd:(h + kh) * hd].reshape(b, s, kh, hd),
+            qkv[..., (h + kh) * hd:].reshape(b, s, kh, hd))
+
+
+def _fa_check(q, k, v):
+    o = ops.flash_attn(q, k, v)
+    o32 = ref.flash_attention_ref(q.float(), k.float(), v.float())
+    torch.cuda.synchronize()
+    assert o.dtype == torch.bfloat16 and o.shape == q.shape
+    assert o.is_contiguous()
+    vmax = v.float().abs().max().item()
+    err = (o.float() - o32).abs() - 2.0 ** -8 * o32.abs()
+    assert err.max().item() <= FA_ATOL * vmax, err.max().item() / vmax
+    # the plain version's own rounding of the same values
+    plain = ref.flash_attention_ref(q, k, v).float()
+    assert ((o.float() - plain).abs()
+            <= 2.0 ** -7 * plain.abs() + FA_ATOL * vmax).all()
+    return o
+
+
+def test_flash_attn_at_nemotrons_shape(card):
+    """4 x 4,096 tokens, 32 query heads of 128 over 2 KV heads."""
+    ops.reset_launch_counts()
+    _fa_check(*_fa_inputs(4, 4096, 32, 2, 128, card, fused=False))
+    assert ops.launch_counts()["flash_attn"] == 1
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("g", [1, 4, 16])
+@pytest.mark.parametrize("s", [1, 127, 1000, 4097])
+def test_flash_attn_at_ragged_lengths(card, s, g, hd):
+    """S not a multiple of the 128-row or 64-key tiles, G query heads a
+    KV head, q, k and v strided views of one projection."""
+    _fa_check(*_fa_inputs(2, s, 16, 16 // g, hd, card))
+
+
+def test_flash_attn_repeats_its_bits(card):
+    q, k, v = _fa_inputs(2, 1000, 32, 2, 128, card)
+    assert torch.equal(ops.flash_attn(q, k, v), ops.flash_attn(q, k, v))
+
+
+def _nemotron_attention(card, head_dim):
+    cfg = configs.reduced_config(configs.get_config(
+        "nemotron3-nano-30b-a3b")).scaled(dtype="bfloat16",
+                                          head_dim=head_dim)
+    p = layers.init_attention(cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                              cfg.head_dim, False, torch.bfloat16, card)
+    gen = torch.Generator(device="cpu").manual_seed(3)
+    with torch.no_grad():
+        for name in sorted(p):
+            p[name].copy_(torch.randn(p[name].shape, generator=gen)
+                          * p[name].init_scale)
+    h = torch.randn(2, 300, cfg.d_model, generator=gen).to(
+        card, torch.bfloat16)
+    return cfg, p, h
+
+
+@pytest.mark.parametrize("head_dim", [64, 128])
+def test_attention_mixer_launches_once(card, tmp_path, head_dim):
+    """Nemotron-H's attention layer (reduced widths, head_dim 64 or 128)
+    under inference mode: one launch and one ``attn.mix`` span with
+    ``path="kernel"``; its output the plain version's within the bounds
+    above, through the output projection."""
+    cfg, p, h = _nemotron_attention(card, head_dim)
+    path = tmp_path / "spans.jsonl"
+    trace.configure(str(path))
+    ops.reset_launch_counts()
+    try:
+        with torch.inference_mode():
+            got = tf.attention_mixer(p, cfg, h)
+    finally:
+        trace.configure(None)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attn"] == 1
+    recs = [json.loads(line) for line in path.read_text().splitlines()]
+    assert [r["attrs"]["path"] for r in recs
+            if r["name"] == "attn.mix"] == ["kernel"]
+    with torch.inference_mode():
+        q, k, v = layers.qkv_project(p, h, cfg.n_heads, cfg.n_kv_heads,
+                                     cfg.head_dim)
+        _fa_check(q, k, v)
+        want = ref.flash_attention_ref(q, k, v).reshape(2, 300, -1) @ p["wo"]
+    rel = (torch.linalg.norm(got.float() - want.float())
+           / torch.linalg.norm(want.float())).item()
+    assert rel < 1e-2, rel
+
+
+@pytest.mark.parametrize("case", ["head_dim_80", "window", "kv_len",
+                                  "requires_grad", "float32"])
+def test_refused_attention_runs_the_plain_version(card, case):
+    """What ``takes_kernel`` refuses runs ``ref.flash_attention_ref``
+    through ``layers.flash_attention``, with no launch and no exception;
+    called directly, the wrapper raises on it."""
+    q, k, v = _fa_inputs(2, 200, 8, 2, 80 if case == "head_dim_80" else 128,
+                         card)
+    kw = dict(causal=True, window=-1, q_chunk=64, kv_chunk=64, kv_len=None)
+    if case == "window":
+        kw["window"] = 50
+    elif case == "kv_len":
+        kw["kv_len"] = torch.tensor([150, 200], device=card)
+    elif case == "requires_grad":
+        q = q.detach().requires_grad_()
+    elif case == "float32":
+        q, k, v = q.float(), k.float(), v.float()
+    ops.reset_launch_counts()
+    got = layers.flash_attention(q, k, v, **kw)
+    assert ops.launch_counts()["flash_attn"] == 0
+    assert torch.equal(got, ref.flash_attention_ref(q, k, v, **kw))
+    if case in ("window", "kv_len"):
+        return  # the wrapper has no such arguments: it is causal alone
+    with pytest.raises(ValueError if case == "head_dim_80" else TypeError):
+        ops.flash_attn(q, k, v)
+    assert ops.launch_counts()["flash_attn"] == 0
