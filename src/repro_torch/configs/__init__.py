@@ -5,9 +5,10 @@ the same values), so that the port imports nothing of that package."""
 from .base import (SHAPES, ModelConfig, PatternConfig,  # noqa: F401
                    ShapeSpec, TrainConfig)
 
-from . import (deepseek_67b, gemma3_12b, mamba2_130m, mixtral_8x22b,
-               mixtral_8x7b, nemotron3_nano_30b_a3b, qwen1_5_4b, qwen2_5_3b,
-               qwen2_vl_7b, seamless_m4t_large_v2, zamba2_2_7b)
+from . import (deepseek_67b, gemma3_12b, kimi_linear_48b_a3b, mamba2_130m,
+               mixtral_8x22b, mixtral_8x7b, nemotron3_nano_30b_a3b,
+               qwen1_5_4b, qwen2_5_3b, qwen2_vl_7b, seamless_m4t_large_v2,
+               zamba2_2_7b)
 
 REGISTRY = {
     m.CONFIG.name: m.CONFIG
@@ -18,7 +19,8 @@ REGISTRY = {
 
 
 # the port's own architectures, which the JAX package does not have
-PORT_REGISTRY = {m.CONFIG.name: m.CONFIG for m in (nemotron3_nano_30b_a3b,)}
+PORT_REGISTRY = {m.CONFIG.name: m.CONFIG
+                 for m in (nemotron3_nano_30b_a3b, kimi_linear_48b_a3b)}
 
 
 def get_config(name: str) -> ModelConfig:
@@ -63,7 +65,15 @@ def reduced_config(cfg: ModelConfig) -> ModelConfig:
         kw.update(local_global_ratio=1, local_window=8)
     if cfg.mrope_sections:
         kw.update(mrope_sections=(4, 2, 2))
-    if cfg.family == "pattern":
+    if cfg.family == "pattern" and set(cfg.layer_pattern) & set("KL-"):
+        # Kimi Linear's kinds, K and E twice; value heads (16) narrower than
+        # query and key heads (16 + 8); every expert held
+        kw.update(layer_pattern="K-KELE", n_layers=6, n_experts=8,
+                  n_experts_per_tok=2, shared_d_ff=128, dense_d_ff=256,
+                  experts_held=None, kda_heads=4, kda_head_dim=16,
+                  kda_chunk=16, kv_lora_rank=32, qk_nope_head_dim=16,
+                  qk_rope_head_dim=8, v_head_dim=16)
+    elif cfg.family == "pattern":
         # every kind of layer once; d_inner (6 x 16) is not expand x d_model
         kw.update(layer_pattern="MEM*E", n_layers=5, n_heads=8, n_experts=8,
                   n_experts_per_tok=2, ssm_state=16, ssm_head_dim=16,

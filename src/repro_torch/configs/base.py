@@ -2,7 +2,7 @@
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 
 def _round_up(x: int, m: int) -> int:
@@ -66,11 +66,19 @@ class PatternConfig(ModelConfig):
     character, each one mixer (Nemotron-H's ``hybrid_override_pattern``):
     ``M`` a Mamba2 mixer of ``ssm_heads`` x ``ssm_head_dim`` channels with
     ``ssm_groups`` groups of B and C; ``E`` a sparse-expert MLP with a
-    sigmoid router (``n_experts``, ``n_experts_per_tok``, relu^2 experts
-    of width ``d_ff``, one shared expert of ``shared_d_ff``); ``*`` GQA
-    attention alone. The port's own fields, which the JAX package's
-    ``ModelConfig`` lacks: such a config lives in the port's own registry
-    (``configs.PORT_REGISTRY``)."""
+    sigmoid router (``n_experts``, ``n_experts_per_tok``, experts of width
+    ``d_ff``, relu^2 or, with ``gated_experts``, SwiGLU, one shared expert
+    of ``shared_d_ff``); ``*`` GQA attention alone; ``K`` Kimi Delta
+    Attention (``kda_heads`` x ``kda_head_dim``, a causal conv of
+    ``kda_conv`` taps, chunks of ``kda_chunk``); ``L`` latent attention
+    (MLA: ``kv_lora_rank``, query and key heads of ``qk_nope_head_dim`` +
+    ``qk_rope_head_dim``, value heads of ``v_head_dim``, ``n_heads`` of
+    each); ``-`` a dense SwiGLU MLP of ``dense_d_ff``. ``experts_held``: the
+    ids of the experts whose weights this card holds and computes, one
+    contiguous range (an expert-parallel share; None: all of them); the
+    router scores all ``n_experts``. The port's own fields, which the JAX
+    package's ``ModelConfig`` lacks: such a config lives in the port's own
+    registry (``configs.PORT_REGISTRY``)."""
 
     layer_pattern: str = ""
     ssm_heads: int = 0
@@ -80,16 +88,39 @@ class PatternConfig(ModelConfig):
     norm_topk_prob: bool = True
     router_groups: int = 1          # group-limited routing (n_group,
     router_topk_groups: int = 1     # topk_group): only one group of all
+    gated_experts: bool = False
+    experts_held: Optional[range] = None
+    kda_heads: int = 0
+    kda_head_dim: int = 128
+    kda_conv: int = 4
+    kda_chunk: int = 64
+    kv_lora_rank: int = 0
+    qk_nope_head_dim: int = 0
+    qk_rope_head_dim: int = 0
+    v_head_dim: int = 0
+    dense_d_ff: int = 0
 
     def __post_init__(self):
         super().__post_init__()
         if len(self.layer_pattern) != self.n_layers \
-                or set(self.layer_pattern) - set("ME*"):
+                or set(self.layer_pattern) - set("ME*KL-"):
             raise ValueError(f"layer_pattern {self.layer_pattern!r}: one of "
-                             f"M, E, * for each of {self.n_layers} layers")
+                             f"M, E, *, K, L, - for each of {self.n_layers} "
+                             f"layers")
         if (self.router_groups, self.router_topk_groups) != (1, 1):
             raise ValueError("group-limited routing is not implemented: "
                              "router_groups and router_topk_groups are 1")
+        held = self.experts_held
+        if held is not None and not (
+                isinstance(held, range) and len(held) and held.step == 1
+                and 0 <= held.start and held.stop <= self.n_experts):
+            raise ValueError(f"experts_held {held!r}: a non-empty range of "
+                             f"step 1 within the {self.n_experts} experts")
+
+    @property
+    def experts_here(self) -> range:
+        """The ids of the experts this card computes."""
+        return self.experts_held or range(self.n_experts)
 
 
 @dataclasses.dataclass(frozen=True)

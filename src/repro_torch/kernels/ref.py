@@ -3,8 +3,9 @@
 on the CPU, and the tests and ``chip_smoke.py`` hold the CUDA kernels
 against these. They mirror the JAX package's oracles
 (``repro/kernels/ref.py``) and compute in float32, or in float64 when
-given float64; ``ssd_scan_ref`` and ``flash_attention_ref``, with no
-oracle there, in float32.
+given float64; ``ssd_scan_ref``, ``flash_attention_ref`` and
+``kda_scan_ref``, with no oracle there, in float32. ``kda_scan_ref`` has
+no kernel yet: the KDA mixer calls it directly.
 
 ``cox_coord_ref`` and ``lipschitz_ref`` also take ``risk_start``, the first
 index of each sample's tie group, and read each risk set there, as the
@@ -202,8 +203,10 @@ def flash_attention_ref(q: Tensor, k: Tensor, v: Tensor, *,
                         kv_len: Optional[Tensor] = None) -> Tensor:
     """Chunked streaming-softmax attention, in float32.
 
-    q: (B, Sq, H, hd); k, v: (B, Skv, KH, hd) with H = KH * G (GQA: query
-    head h reads KV head h // G). window: -1/0 => full; w > 0 => keys with
+    q, k: (B, Sq, H, hd), (B, Skv, KH, hd); v: (B, Skv, KH, dv), with H = KH
+    * G (GQA: query head h reads KV head h // G); the output is (B, Sq, H,
+    dv), the scale hd^-1/2 (latent attention's value heads are narrower than
+    its query and key heads). window: -1/0 => full; w > 0 => keys with
     qpos - kpos >= w are masked (sliding window). kv_len: optional (B,)
     valid KV length. Masked scores are -1e30 and the output divides by
     max(l, 1e-30), as the reference's. Blocks start at multiples of the
@@ -213,7 +216,7 @@ def flash_attention_ref(q: Tensor, k: Tensor, v: Tensor, *,
     Memory: O(q_chunk * kv_chunk) scores per step instead of O(Sq * Skv).
     """
     b, sq, h, hd = q.shape
-    skv, kh = k.shape[1], k.shape[2]
+    skv, kh, dv = k.shape[1], k.shape[2], v.shape[-1]
     g = h // kh
     scale = hd ** -0.5
     dev = q.device
@@ -221,13 +224,13 @@ def flash_attention_ref(q: Tensor, k: Tensor, v: Tensor, *,
     kf, vf = k.float(), v.float()
     limit = (torch.full((1, 1), skv, device=dev) if kv_len is None
              else kv_len.to(dev)[:, None])                  # (B or 1, 1)
-    out = torch.empty(b, sq, kh, g, hd, dtype=torch.float32, device=dev)
+    out = torch.empty(b, sq, kh, g, dv, dtype=torch.float32, device=dev)
     for q0 in range(0, sq, q_chunk):
         qi = qf[:, q0:q0 + q_chunk]
         qpos = torch.arange(q0, q0 + qi.shape[1], device=dev)
         m = torch.full(qi.shape[:-1], -torch.inf, device=dev)
         l = torch.zeros(qi.shape[:-1], device=dev)
-        acc = torch.zeros(qi.shape, device=dev)
+        acc = torch.zeros(*qi.shape[:-1], dv, device=dev)
         for k0 in range(0, skv, kv_chunk):
             kj, vj = kf[:, k0:k0 + kv_chunk], vf[:, k0:k0 + kv_chunk]
             kpos = torch.arange(k0, k0 + kj.shape[1], device=dev)
@@ -247,4 +250,135 @@ def flash_attention_ref(q: Tensor, k: Tensor, v: Tensor, *,
                 "bqkgc,bckd->bqkgd", p, vj)
             m = m_new
         out[:, q0:q0 + q_chunk] = acc / torch.clamp_min(l, 1e-30)[..., None]
-    return out.reshape(b, sq, h, hd).to(q.dtype)
+    return out.reshape(b, sq, h, dv).to(q.dtype)
+
+
+# sub-chunks of a KDA chunk (``kda_scan_ref``), and the bytes of the pairwise
+# decay terms that one group of chunks may hold at once
+KDA_SUB = 16
+KDA_GROUP_BYTES = 512 << 20
+
+
+def kda_scan_ref(q: Tensor, k: Tensor, v: Tensor, g: Tensor, beta: Tensor,
+                 chunk: int) -> Tuple[Tensor, Tensor]:
+    """Kimi Delta Attention's gated delta rule in chunks, in float32: (o
+    (B, S, H, dv), the final state (B, H, dk, dv)). Per head, with a decay
+    exp(g_t) for each key channel,
+
+        S_t = (I - beta_t k_t k_t^T) Diag(exp g_t) S_{t-1} + beta_t k_t v_t^T,
+        o_t = S_t^T q_t dk^-1/2,
+
+    from S_0 = 0. q, k (B, S, H, dk), L2-normalised by the caller; v (B, S,
+    H, dv); g (B, S, H, dk), log decays <= 0; beta (B, S, H).
+
+    In a chunk of C steps, with G the log decay summed from the chunk's
+    start (step t included) and S_0 the state coming in, the delta rule's
+    corrections D = U - W S_0 solve one unit lower-triangular system (the
+    WY form), and
+
+        (I + Diag(beta) A) [U | W] = Diag(beta) [V | exp(G) * K],
+        O = (exp(G) * Q) S_0 + P D,
+        S_C = Diag(exp(G_C)) S_0 + (exp(G_C - G) * K)^T D,
+
+    where A_ti = sum_c k_tc k_ic exp(G_tc - G_ic) for i < t and P_ti the
+    same with q_t for i <= t. exp(-G_i) alone overflows float32 within a
+    chunk at strong decays, so the pairwise decays are taken within
+    sub-chunks of KDA_SUB, and between sub-chunks factorised at the later
+    one's first step r, exp(G_t - G_r) exp(G_r - G_i): no exponent
+    anywhere is positive. S is padded to whole chunks with q = k = v = g =
+    beta = 0, which neither decays nor feeds the state.
+
+    Both lines are affine in S_0: S_C = M S_0 + K'^T U with M =
+    Diag(exp(G_C)) - K'^T W (K' = exp(G_C - G) * K), and O = Q' S_0 + P U
+    with Q' = exp(G) * Q - P W. The chunks' parts (M, K'^T U, Q', P U) are
+    made for groups of chunks whose pairwise terms stay within
+    KDA_GROUP_BYTES; then the state runs through the group's chunks in
+    order, one batched product a chunk, and the group's outputs follow
+    from the states entering its chunks in one more."""
+    b, s, h, dk = q.shape
+    dv = v.shape[-1]
+    nc = -(-s // chunk)
+    pad = nc * chunk - s
+
+    def chunked(t: Tensor) -> Tensor:
+        """(B, S, H, ...) -> (nc, B H, C, ...) float32, padded: each
+        chunk's rows of every batch row and head contiguous."""
+        t = F.pad(t.float(), (0, 0) * (t.dim() - 2) + (0, pad))
+        t = t.reshape(b, nc, chunk, h, *t.shape[3:]).movedim(3, 2)
+        return t.movedim(0, 1).reshape(nc, b * h, chunk, *t.shape[4:])
+
+    qc, kc, vc, gc, bc = (chunked(t) for t in (q, k, v, g, beta))
+    qc = qc * dk ** -0.5
+    sub = math.gcd(chunk, KDA_SUB)
+    # the pairwise decays (two C x sub x dk terms) and the factorised ones
+    # (two C x C / sub x dk) of one chunk of every batch row and head
+    per_chunk = 4 * b * h * dk * chunk * 2 * (sub + chunk // sub)
+    step = max(1, KDA_GROUP_BYTES // per_chunk)
+    state = torch.zeros(b * h, dk, dv, dtype=torch.float32, device=q.device)
+    out = []
+    for c0 in range(0, nc, step):
+        c1 = min(c0 + step, nc)
+        m, ku, qm, pu = _kda_chunks(qc[c0:c1], kc[c0:c1], vc[c0:c1],
+                                    gc[c0:c1], bc[c0:c1], sub)
+        ins = []                    # the states entering the group's chunks
+        for m_j, ku_j in zip(m.unbind(0), ku.unbind(0)):
+            ins.append(state)
+            state = torch.baddbmm(ku_j, m_j, state)
+        out.append(pu + qm @ torch.stack(ins))
+    o = torch.cat(out).reshape(nc, b, h, chunk, dv).permute(1, 0, 3, 2, 4)
+    return o.reshape(b, nc * chunk, h, dv)[:, :s], state.reshape(b, h, dk,
+                                                                  dv)
+
+
+def _kda_chunks(q: Tensor, k: Tensor, v: Tensor, g: Tensor, beta: Tensor,
+                sub: int):
+    """What ``kda_scan_ref`` needs of chunks (N, B H, C, ...) before the
+    state, each chunk's two affine maps of the state coming in: M (N, B H,
+    dk, dk) and K'^T U (N, B H, dk, dv), for the state going out; Q' (N, B
+    H, C, dk) and P U (N, B H, C, dv), for the outputs."""
+    gam = torch.cumsum(g, dim=-2)
+    a, p = _kda_pairs(q, k, gam, sub)
+    last = gam[..., -1:, :]
+    eg = torch.exp(gam)
+    rhs = beta[..., None] * torch.cat([v, eg * k], dim=-1)
+    # I + Diag(beta) A: A is strictly lower, the unit diagonal implied
+    uw = torch.linalg.solve_triangular(beta[..., None] * a, rhs, upper=False,
+                                       unitriangular=True)
+    u, w = uw.split([v.shape[-1], k.shape[-1]], dim=-1)
+    kt = (torch.exp(last - gam) * k).transpose(-1, -2)
+    m = torch.diag_embed(torch.exp(last[..., 0, :])).sub_(kt @ w)
+    return m, kt @ u, (eg * q).sub_(p @ w), p @ u
+
+
+def _kda_pairs(q: Tensor, k: Tensor, gam: Tensor, sub: int):
+    """A (strictly lower) and P (lower) of chunks (..., C, dk), each (...,
+    C, C): sum_c x_tc k_ic exp(G_tc - G_ic) for x = k and q."""
+    *lead, c, dk = k.shape
+    ns = c // sub
+    ks, qs, gs = (t.reshape(*lead, ns, sub, dk) for t in (k, q, gam))
+    idx = torch.arange(sub, device=k.device)
+    # within a sub-chunk: exp(G_t - G_i) for i <= t, 0 above
+    lower = (idx[:, None] >= idx[None, :])[:, :, None]
+    dec = torch.exp(torch.where(lower, gs[..., :, None, :] - gs[..., None, :, :],
+                                -torch.inf))
+    dec.mul_(ks[..., None, :, :])                     # (.., ns, t, i, dk)
+    a_in = torch.einsum("...tc,...tic->...ti", ks, dec)
+    p_in = torch.einsum("...tc,...tic->...ti", qs, dec)
+    del dec
+    a_in = a_in * (idx[:, None] > idx[None, :])         # i < t for A
+    # sub-chunk x before sub-chunk y, factorised at y's first step r;
+    # the exponent clamped where x is not before y (those blocks are 0)
+    first = gs[..., :1, :]                               # (.., ns, 1, dk)
+    right = ks[..., None, :, :, :] * torch.exp(torch.clamp(
+        first[..., :, None, :, :] - gs[..., None, :, :, :], max=0.0))
+    fall = torch.exp(gs - first)                         # (.., ns, sub, dk)
+    a_x = torch.einsum("...ytc,...yxic->...yxti", ks * fall, right)
+    p_x = torch.einsum("...ytc,...yxic->...yxti", qs * fall, right)
+    blocks = torch.arange(ns, device=k.device)
+    before = (blocks[:, None] > blocks[None, :])[:, :, None, None]
+    out = []
+    for x_, inside in ((a_x, a_in), (p_x, p_in)):
+        x_ = torch.where(before, x_, 0.0)
+        x_.diagonal(0, -4, -3).copy_(inside.movedim(-3, -1))
+        out.append(x_.transpose(-3, -2).reshape(*lead, c, c))
+    return out

@@ -131,6 +131,26 @@ def init_attention(d_model: int, n_heads: int, n_kv_heads: int,
     return nn.ParameterDict(p)
 
 
+def init_mla(d_model: int, n_heads: int, kv_lora_rank: int, qk_nope: int,
+             qk_rope: int, v_dim: int, dtype=torch.bfloat16,
+             device="cuda") -> nn.ParameterDict:
+    """Latent attention's weights (DeepSeek-V2's MLA with no query
+    compression): the query projection, the shared compressed KV and key
+    part (``kv_a_proj_with_mqa``), its norm, the KV decompression
+    (``kv_b_proj``) and the output projection."""
+    s = d_model ** -0.5
+    vo = n_heads * v_dim
+    return nn.ParameterDict({
+        "wq": normal((d_model, n_heads * (qk_nope + qk_rope)), s, dtype,
+                     device),
+        "wkv_a": normal((d_model, kv_lora_rank + qk_rope), s, dtype, device),
+        "kv_norm": const(torch.ones(kv_lora_rank, dtype=dtype), device),
+        "wkv_b": normal((kv_lora_rank, n_heads * (qk_nope + v_dim)),
+                        kv_lora_rank ** -0.5, dtype, device),
+        "wo": normal((vo, d_model), vo ** -0.5, dtype, device),
+    })
+
+
 def qkv_project(params: Mapping[str, Tensor], x: Tensor, n_heads: int,
                 n_kv_heads: int, head_dim: int):
     b, s, _ = x.shape
@@ -158,8 +178,9 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
                     window: int = -1, q_chunk: int = 1024,
                     kv_chunk: int = 1024,
                     kv_len: Optional[Tensor] = None) -> Tensor:
-    """Attention of q (B, Sq, H, hd) over k, v (B, Skv, KH, hd), H = KH * G
-    (GQA: query head h reads KV head h // G), in q's dtype. window: -1/0
+    """Attention of q (B, Sq, H, hd) over k (B, Skv, KH, hd) and v (B, Skv,
+    KH, dv), H = KH * G (GQA: query head h reads KV head h // G), in q's
+    dtype, (B, Sq, H, dv). window: -1/0
     => full; w > 0 => keys with qpos - kpos >= w are masked (sliding
     window). kv_len: optional (B,) valid KV length.
 

@@ -2,9 +2,10 @@
 pool: ``dense``, ``moe`` and ``vlm`` (decoder-only transformers), ``ssm``
 (Mamba2 stacks), ``hybrid`` (Zamba2: Mamba2 groups with one shared
 transformer block), ``encdec`` (encoder-decoder with cross attention) and
-``pattern`` (Nemotron-H: one mixer a layer, Mamba2, sparse experts or
-attention, as ``PatternConfig.layer_pattern`` lays them out; the port's
-own family, which the JAX package lacks, with no decode cache yet).
+``pattern`` (Nemotron-H and Kimi Linear: one mixer a layer, Mamba2,
+sparse experts, attention, KDA, latent attention or a dense MLP, as
+``PatternConfig.layer_pattern`` lays them out; the port's own family,
+which the JAX package lacks, with no decode cache yet).
 
 The PyTorch port's counterpart of the JAX package's ``models/model.py``.
 The module holds the parameters under the reference's names, one entry per
@@ -38,7 +39,7 @@ from torch.utils import checkpoint as _ckpt
 
 from .. import device as _device
 from ..configs.base import ModelConfig
-from . import layers, moe, pspec, ssm, transformer as tf
+from . import kda, layers, moe, pspec, ssm, transformer as tf
 
 Tensor = torch.Tensor
 
@@ -163,7 +164,8 @@ class Model(nn.Module):
                                      dtype=self.dt, device=dev)})
 
     def _init_pattern_layer(self, dev, kind: str) -> nn.ModuleDict:
-        """A pre-norm and one mixer: ``mamba``, ``moe`` or ``attn``."""
+        """A pre-norm and one mixer: ``mamba`` (M), ``moe`` (E), ``attn``
+        (*), ``kda`` (K), ``mla`` (L) or ``mlp`` (-)."""
         cfg, dt = self.cfg, self.dt
         if kind == "M":
             name, mixer = "mamba", ssm.init_mamba2(
@@ -172,7 +174,19 @@ class Model(nn.Module):
         elif kind == "E":
             name, mixer = "moe", moe.init_sparse_moe(
                 cfg.d_model, cfg.d_ff, cfg.n_experts, cfg.shared_d_ff, dt,
-                dev)
+                dev, held=len(cfg.experts_here), gated=cfg.gated_experts)
+        elif kind == "K":
+            name, mixer = "kda", kda.init_kda(
+                cfg.d_model, cfg.kda_heads, cfg.kda_head_dim, cfg.kda_conv,
+                dt, dev)
+        elif kind == "L":
+            name, mixer = "mla", layers.init_mla(
+                cfg.d_model, cfg.n_heads, cfg.kv_lora_rank,
+                cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim,
+                dt, dev)
+        elif kind == "-":
+            name, mixer = "mlp", layers.init_mlp(cfg.d_model, cfg.dense_d_ff,
+                                                 dt, dev)
         else:
             name, mixer = "attn", layers.init_attention(
                 cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
@@ -307,7 +321,7 @@ class Model(nn.Module):
         return x, (kvs, states)
 
     def _pattern_layer(self, kind: str, p_l, x: Tensor) -> Tensor:
-        """x + mixer(norm(x)), the mixer of ``kind`` (M, E or *)."""
+        """x + mixer(norm(x)), the mixer of ``kind`` (M, E, *, K, L or -)."""
         cfg = self.cfg
         h = layers.rmsnorm(p_l["ln"], x, cfg.rms_eps)
         if kind == "M":
@@ -318,7 +332,16 @@ class Model(nn.Module):
                 eps=cfg.rms_eps)
         elif kind == "E":
             y = moe.sparse_moe(p_l["moe"], h, cfg.n_experts_per_tok,
-                               cfg.routed_scaling, cfg.norm_topk_prob)
+                               cfg.routed_scaling, cfg.norm_topk_prob,
+                               first=cfg.experts_here.start)
+        elif kind == "K":
+            y = kda.kda_forward(p_l["kda"], h, n_heads=cfg.kda_heads,
+                                head_dim=cfg.kda_head_dim,
+                                chunk=cfg.kda_chunk, eps=cfg.rms_eps)
+        elif kind == "L":
+            y = tf.mla_mixer(p_l["mla"], cfg, h)
+        elif kind == "-":
+            y = layers.mlp(p_l["mlp"], h)
         else:
             y = tf.attention_mixer(p_l["attn"], cfg, h)
         return x + y

@@ -16,17 +16,20 @@ off: an index write cannot drop an out-of-bounds row as the reference's
 so that a check can hold the experts' numerics at given routes. On
 DTensors each step runs on local shards (``_moe_on_mesh``).
 
-``sparse_moe`` is Nemotron-H's layer, the port's own: a sigmoid router
-whose choice adds a correction bias and whose weights (the plain scores
-of the chosen) are normalised and scaled, no aux loss; every (token,
-choice) pair dispatched, none dropped, over the pairs sorted by expert,
-through one grouped GEMM an expert projection (``F.grouped_mm``); relu^2
-experts without a gate; one shared expert on every token.
+``sparse_moe`` is the layer of Nemotron-H and Kimi Linear, the port's own:
+a sigmoid router whose choice adds a correction bias and whose weights
+(the plain scores of the chosen) are normalised and scaled, no aux loss;
+every (token, choice) pair dispatched, none dropped, over the pairs sorted
+by expert, through one grouped GEMM an expert projection
+(``F.grouped_mm``); relu^2 experts (Nemotron-H) or SwiGLU ones (Kimi);
+one shared expert on every token. The layer may hold a share of the
+experts (expert parallelism): it routes over all of them and computes
+only the pairs of the experts it holds.
 """
 from __future__ import annotations
 
 import functools
-from typing import Mapping
+from typing import Callable, Mapping, Optional
 
 import torch
 import torch.nn.functional as F
@@ -170,19 +173,27 @@ def _moe_on_mesh(params, x: Tensor, k: int, capacity_factor: float):
 # ---------------------------------------------------------------------------
 
 def init_sparse_moe(d_model: int, d_ff: int, n_experts: int, shared_d_ff: int,
-                    dtype=torch.bfloat16, device="cuda") -> nn.ParameterDict:
+                    dtype=torch.bfloat16, device="cuda", held: int = 0,
+                    gated: bool = False) -> nn.ParameterDict:
+    """The router over ``n_experts``, the weights of ``held`` of them (all
+    when 0) and the shared expert; ``gated``: SwiGLU experts, a gate
+    projection beside each up projection."""
     s = d_model ** -0.5
-    return nn.ParameterDict({
+    n = held or n_experts
+    p = {
         "router": normal((d_model, n_experts), s, torch.float32, device),
         # the choice's correction bias (``e_score_correction_bias``)
         "router_bias": const(torch.zeros(n_experts), device),
-        "w_up": normal((n_experts, d_model, d_ff), s, dtype, device),
-        "w_down": normal((n_experts, d_ff, d_model), d_ff ** -0.5, dtype,
-                         device),
+        "w_up": normal((n, d_model, d_ff), s, dtype, device),
+        "w_down": normal((n, d_ff, d_model), d_ff ** -0.5, dtype, device),
         "shared_up": normal((d_model, shared_d_ff), s, dtype, device),
         "shared_down": normal((shared_d_ff, d_model), shared_d_ff ** -0.5,
                               dtype, device),
-    })
+    }
+    if gated:
+        p["w_gate"] = normal((n, d_model, d_ff), s, dtype, device)
+        p["shared_gate"] = normal((d_model, shared_d_ff), s, dtype, device)
+    return nn.ParameterDict(p)
 
 
 def route_sigmoid(params: Mapping[str, Tensor], x: Tensor, k: int,
@@ -204,6 +215,14 @@ def _relu2(h: Tensor) -> Tensor:
     return torch.square(torch.relu(h))
 
 
+def _mlp(x: Tensor, up, down, gate=None, mm=torch.matmul) -> Tensor:
+    """relu(x up)^2 down, or with ``gate`` silu(x gate) (x up) down; ``mm``
+    the projection (a grouped GEMM over the experts' row ranges)."""
+    h = mm(x, up)
+    h = _relu2(h) if gate is None else F.silu(mm(x, gate)) * h
+    return mm(h, down)
+
+
 def expert_load(topi: Tensor, n_experts: int) -> Tensor:
     """The (token, choice) pairs each expert takes, (E,), with no host
     read (``torch.bincount`` reads its input's largest value on the host
@@ -214,43 +233,129 @@ def expert_load(topi: Tensor, n_experts: int) -> Tensor:
 
 
 def sorted_experts(x: Tensor, topv: Tensor, topi: Tensor, load: Tensor,
-                   w_up: Tensor, w_down: Tensor) -> Tensor:
-    """Every (token, choice) pair through its relu^2 expert, none dropped:
-    x (T, D), topv and topi (T, k), ``expert_load(topi)`` -> the sum over
-    k of weight x expert output (T, D), float32. The pairs are sorted by
-    expert (stable, so by token within one), gathered, run through one
-    grouped GEMM an expert projection over the experts' row ranges (no
-    host read), put back in pair order and summed over the choices in a
-    fixed order."""
+                   w_up: Tensor, w_down: Tensor,
+                   w_gate: Optional[Tensor] = None) -> Tensor:
+    """Every (token, choice) pair through its expert (relu^2, or SwiGLU
+    given ``w_gate``), none dropped: x (T, D), topv and topi (T, k),
+    ``expert_load(topi)`` -> the sum over k of weight x expert output (T,
+    D), float32. The pairs are sorted by expert (stable, so by token
+    within one), gathered, run through one grouped GEMM an expert
+    projection over the experts' row ranges (no host read), put back in
+    pair order and summed over the choices in a fixed order."""
     t, k = topi.shape
     order = torch.argsort(topi.reshape(t * k), stable=True)
     ends = torch.cumsum(load, 0, dtype=torch.int32)
-    xs = x[order // k]                                          # (T k, D)
-    h = _relu2(F.grouped_mm(xs, w_up, offs=ends))
-    ys = F.grouped_mm(h, w_down, offs=ends)                     # (T k, D)
+    mm = functools.partial(F.grouped_mm, offs=ends)
+    ys = _mlp(x[order // k], w_up, w_down, w_gate, mm)          # (T k, D)
     back = torch.empty_like(ys)
     back[order] = ys
     return (back.reshape(t, k, -1).float() * topv[..., None]).sum(dim=1)
 
 
+def _read_later(t: Tensor) -> Callable[[], int]:
+    """A one-element tensor's value, its copy to the host started now on
+    the card: the returned call waits for that copy alone, so work queued
+    after this runs on while the host waits."""
+    if not t.is_cuda:
+        return lambda: int(t)
+    host = t.to("cpu", non_blocking=True)
+    copied = torch.cuda.Event()
+    copied.record()
+
+    def wait() -> int:
+        copied.synchronize()
+        return int(host)
+    return wait
+
+
+def held_experts(x: Tensor, topv: Tensor, local: Tensor, load: Tensor,
+                 w_up: Tensor, w_down: Tensor,
+                 w_gate: Optional[Tensor] = None,
+                 count: Optional[Callable[[], int]] = None) -> Tensor:
+    """The pairs whose expert this layer holds through their experts, as
+    ``sorted_experts`` does: x (T, D); topv (T, k); local (T, k), the
+    chosen experts' ids less the first held one's; load (n,), the held
+    experts' pairs -> the sum over each token's held choices of weight x
+    expert output (T, D), float32. The other pairs are neither gathered
+    nor computed: their experts' part of the result is another card's.
+    The number of held pairs, read on the host once a call, sizes the
+    buffers, as an expert-parallel layer's exchange learns what it
+    receives; ``count`` is that read when the caller has started it
+    (``_read_later(load.sum())``), else it starts here. Each token's held
+    outputs are summed in choice order (``torch.segment_reduce``: no
+    atomics, the same bits every run)."""
+    t, k = local.shape
+    n = w_up.shape[0]
+    ends = torch.cumsum(load, 0, dtype=torch.int32)
+    count = count or _read_later(ends[-1])
+    flat = local.reshape(t * k)
+    held = (flat >= 0) & (flat < n)
+    # the held pairs first, by expert, and by pair within one
+    pairs = torch.argsort(torch.where(held, flat, n), stable=True)
+    lengths = held.reshape(t, k).sum(1)
+    m = count()
+    if m == 0:
+        return x.new_zeros(t, x.shape[1], dtype=torch.float32)
+    pairs = pairs[:m]
+    mm = functools.partial(F.grouped_mm, offs=ends)
+    ys = _mlp(x[pairs // k], w_up, w_down, w_gate, mm)           # (m, D)
+    by_pair, back = torch.sort(pairs)
+    ys = ys[back].float() * topv.reshape(t * k)[by_pair, None]
+    return torch.segment_reduce(ys, "sum", lengths=lengths, axis=0,
+                                unsafe=True)
+
+
 def sparse_moe(params: Mapping[str, Tensor], x: Tensor, k: int,
-               scaling: float = 1.0, norm_topk_prob: bool = True) -> Tensor:
+               scaling: float = 1.0, norm_topk_prob: bool = True,
+               first: int = 0) -> Tensor:
     """x: (B, S, D), pre-normed -> the routed experts' weighted sum plus
-    the shared expert, (B, S, D) in x's dtype. Spans with the card's time:
-    ``moe.route`` (attributes ``tokens`` and ``max_load``, the most pairs
-    one expert took, a card tensor read when the span is written out),
+    the shared expert, (B, S, D) in x's dtype. The router scores its E
+    experts; the layer holds the weights of n of them, ids ``first`` to
+    ``first + n - 1``, and where n < E computes only their pairs
+    (``held_experts``), else every pair (``sorted_experts``). Experts and
+    the shared expert are SwiGLU where ``params`` has ``w_gate``, else
+    relu^2. Spans with the card's time: ``moe.route`` (attributes
+    ``tokens``; ``max_load``, the most pairs one expert took, and
+    ``held_pairs``, the pairs sent to held experts, card tensors read when
+    the span is written out, or a number where every expert is held),
     ``moe.experts`` (the sort, the grouped GEMMs, the combine) and
-    ``moe.shared``."""
+    ``moe.shared``. Where every expert is held the path reads nothing on
+    the host; else the held pairs' count comes to the host, and
+    ``moe.shared`` runs before ``moe.experts`` to keep the card busy while
+    it does."""
     b, s, d = x.shape
     xt = x.reshape(b * s, d)
+    e, n = params["router"].shape[1], params["w_up"].shape[0]
+    gate = params["w_gate"] if "w_gate" in params else None
+    shared_gate = params["shared_gate"] if gate is not None else None
     with trace.span("moe.route", device_time=True, tokens=b * s) as sp:
         topv, topi = route_sigmoid(params, x, k, scaling, norm_topk_prob)
-        load = expert_load(topi, params["w_up"].shape[0])
+        load = expert_load(topi, e)
         sp.set(max_load=load.max())
+        if n < e:
+            load = load[first:first + n]
+            pairs = load.sum()
+            sp.set(held_pairs=pairs)
+            count = _read_later(pairs)
+        else:
+            sp.set(held_pairs=b * s * k)
+    if n < e:
+        # the shared expert first: the card runs it while the host waits
+        # for the held pairs' count
+        with trace.span("moe.shared", device_time=True):
+            shared = _mlp(xt, params["shared_up"], params["shared_down"],
+                          shared_gate)
+        with trace.span("moe.experts", device_time=True):
+            routed = held_experts(xt, topv, topi - first, load,
+                                  params["w_up"], params["w_down"], gate,
+                                  count)
+            out = (routed + shared.float()).to(x.dtype)
+        return out.reshape(b, s, d)
     with trace.span("moe.experts", device_time=True):
         routed = sorted_experts(xt, topv, topi, load, params["w_up"],
-                                params["w_down"])
+                                params["w_down"], gate)
     with trace.span("moe.shared", device_time=True):
-        shared = _relu2(xt @ params["shared_up"]) @ params["shared_down"]
+        shared = _mlp(xt, params["shared_up"], params["shared_down"],
+                      shared_gate)
         out = (routed + shared.float()).to(x.dtype)
     return out.reshape(b, s, d)

@@ -14,7 +14,7 @@ version on DTensors' shards.
 from __future__ import annotations
 
 import functools
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -76,17 +76,19 @@ def _channels(xbc: Tensor, *others: Tensor) -> list:
         on((None,) * (t.dim() - 1) + (ch,), t.shape) for t in others]
 
 
-def _causal_conv(xbc: Tensor, w: Tensor, b: Tensor) -> Tensor:
-    """Depthwise causal conv over (B, S, C) with kernel (W, C), in the
-    input's dtype, then silu rounded to it; on DTensors, on each device's
-    shards (independent over batch and channels)."""
+def _causal_conv(xbc: Tensor, w: Tensor,
+                 b: Optional[Tensor] = None) -> Tensor:
+    """Depthwise causal conv over (B, S, C) with kernel (W, C) and bias b
+    (C,) if any (Kimi's convs have none), in the input's dtype, then silu
+    rounded to it; on DTensors, on each device's shards (independent over
+    batch and channels)."""
     if isinstance(xbc, DTensor):
         ins = _channels(xbc, w, b)
         return pspec.on_shards(_causal_conv, ins, [ins[0]], xbc, w, b)
     width, s = w.shape[0], xbc.shape[1]
     xp = F.pad(xbc, (0, 0, width - 1, 0))
     out = sum(xp[:, i:i + s, :] * w[i] for i in range(width))
-    return F.silu(out + b).to(xbc.dtype)
+    return F.silu(out if b is None else out + b).to(xbc.dtype)
 
 
 def mamba2_forward(params, x: Tensor, *, d_state: int, head_dim: int = 64,

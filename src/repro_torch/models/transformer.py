@@ -169,6 +169,37 @@ def attention_mixer(p, cfg: ModelConfig, h: Tensor) -> Tensor:
         return o.reshape(b, s, -1) @ p["wo"]
 
 
+def mla_mixer(p, cfg, h: Tensor) -> Tensor:
+    """Kimi Linear's latent attention (MLA) on its pre-normed input h (B, S,
+    D): queries of ``qk_nope_head_dim`` + ``qk_rope_head_dim`` a head from
+    h; a compressed KV of ``kv_lora_rank`` and one shared key part of
+    ``qk_rope_head_dim`` from h, the compressed KV RMS-normed and expanded
+    to each head's key part and value (``v_head_dim``); keys [nope part,
+    the shared part]; causal softmax attention at scale (query head
+    dim)^-1/2 and the output projection. No rotary embedding
+    (``mla_use_nope``: the KDA layers carry position). Span ``mla.mix``
+    with the card's time; its ``path`` is "kernel" where
+    ``flash_attn.takes_kernel`` holds for q, k and v (it refuses value
+    heads narrower than the keys'), else "eager"."""
+    b, s, _ = h.shape
+    n, r = cfg.n_heads, cfg.kv_lora_rank
+    dn, dr = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    with trace.span("mla.mix", device_time=True) as sp:
+        q = (h @ p["wq"]).reshape(b, s, n, dn + dr)
+        ckv = h @ p["wkv_a"]
+        c = rmsnorm({"scale": p["kv_norm"]}, ckv[..., :r], cfg.rms_eps)
+        kv = (c @ p["wkv_b"]).reshape(b, s, n, dn + cfg.v_head_dim)
+        k_pe = ckv[:, :, None, r:].expand(b, s, n, dr)
+        k = torch.cat([kv[..., :dn], k_pe], dim=-1)
+        v = kv[..., dn:]
+        kernel = flash_kernel.takes_kernel(q, k, v, causal=True, window=-1,
+                                           kv_len=None)
+        sp.set(path="kernel" if kernel else "eager")
+        o = flash_attention(q, k, v, causal=True, q_chunk=cfg.q_chunk,
+                            kv_chunk=cfg.kv_chunk)
+        return o.reshape(b, s, -1) @ p["wo"]
+
+
 def prefill_cache_kv(k_cache: Tensor, v_cache: Tensor, k: Tensor,
                      v: Tensor) -> None:
     """Write full-sequence (B, S, KH, hd) K/V into a zeroed cache of one

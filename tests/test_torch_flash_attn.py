@@ -104,6 +104,31 @@ def test_plain_attention_keeps_its_bits(fn, case, dtype, digest):
     assert ops.launch_counts()["flash_attn"] == 0
 
 
+@pytest.mark.parametrize("causal,g,chunk", [(True, 1, 16), (True, 2, 1024),
+                                             (False, 2, 16)])
+def test_value_heads_narrower_than_query_heads(causal, g, chunk):
+    """Latent attention's shapes: q and k heads of 192, v heads of 128; the
+    output takes v's head dim and the scale q's, as an explicit softmax
+    (float64 against float32 blocks: the same sums in other orders). The
+    kernel's predicate refuses them."""
+    b, s, kh, hd, dv = 2, 45, 2, 192, 128
+    q, k, v = (_x((b, s, kh * g, hd), 5), _x((b, s, kh, hd), 6),
+               _x((b, s, kh, dv), 7))
+    for attend in (ref.flash_attention_ref, layers.flash_attention):
+        o = attend(q, k, v, causal=causal, q_chunk=chunk, kv_chunk=chunk)
+        assert o.shape == (b, s, kh * g, dv) and o.dtype == torch.float32
+        kk, vv = (t.double().repeat_interleave(g, 2) for t in (k, v))
+        sc = torch.einsum("bqhd,bkhd->bhqk", q.double(), kk) * hd ** -0.5
+        if causal:
+            sc = sc.masked_fill(~torch.ones(s, s, dtype=torch.bool).tril(),
+                                -torch.inf)
+        want = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(sc, -1), vv)
+        torch.testing.assert_close(o.double(), want, rtol=1e-5, atol=1e-6)
+    card = [_OnCard(t.bfloat16()) for t in (q, k, v)]
+    assert not fa_mod.takes_kernel(*card, causal=True, window=-1,
+                                   kv_len=None)
+
+
 def test_plain_path_digests_equal_the_parents():
     """Every architecture's prefill, decode, loss, gradients and train
     steps in float32 and bfloat16 on the CPU: the 140 digests of
