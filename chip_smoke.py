@@ -525,11 +525,14 @@ SSD_STATE_TOL = 5e-4     # the final state against the eager state, of its
 BF16_PEAK = 989e12       # dense bfloat16 tensor-core rate of an H100 SXM
 # the causal GQA flash-attention kernel (flash_attn, replaces no TPU
 # kernel) at Nemotron-H's attention layer, (batch, S, heads, KV heads,
-# head_dim), timed and checked; then ragged S, G = 1 and 16 and head_dim
-# 64, checked
+# head_dim), and at Kimi Linear's latent attention, (batch, S, heads, KV
+# heads, q and k head_dim, v head_dim), v a view of the KV expansion,
+# timed and checked; then ragged S, G = 1 and 16, head_dim 64 and the
+# latent heads, checked
 FA_CELL = (4, 4_096, 32, 2, 128)
+FA_MLA_CELL = (2, 8_192, 32, 32, 192, 128)
 FA_CHECKS = ((2, 1_000, 16, 16, 128), (2, 127, 16, 1, 64),
-             (1, 4_097, 16, 4, 64))
+             (1, 4_097, 16, 4, 64), (2, 1_000, 16, 16, 192, 128))
 FA_ATOL = 2.0 ** -9 * 1.05  # o against the plain version's float32 o beyond
                             # its rounding to bfloat16 (2^-8 |o|), of max |v|:
                             # P rounded to bfloat16 moves o by at most 2^-9
@@ -4398,28 +4401,40 @@ def ssd_timings() -> dict:
     return {"times": times, "cells": cells}
 
 
-def _fa_inputs(b, s, h, kh, hd, seed=0):
-    """q (B, S, H, hd) and k, v (B, S, KH, hd) bfloat16 on the card."""
+def _fa_inputs(b, s, h, kh, hd, dv=None, seed=0):
+    """q (B, S, H, hd) and k, v (B, S, KH, hd) bfloat16 on the card; with
+    a ``dv`` of its own, v (B, S, KH, dv) a view of a (B, S, KH (hd - 64 +
+    dv)) KV expansion and k its key part beside a part shared by the
+    heads, as ``models/transformer.py::mla_mixer`` hands them over."""
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    return tuple(torch.randn(b, s, n, hd, device="cuda", generator=gen)
-                 .to(torch.bfloat16) for n in (h, kh, kh))
+    if dv is None or dv == hd:
+        return tuple(torch.randn(b, s, n, hd, device="cuda", generator=gen)
+                     .to(torch.bfloat16) for n in (h, kh, kh))
+    dn = hd - 64
+    q, kv, pe = (torch.randn(b, s, n, d, device="cuda", generator=gen)
+                 .to(torch.bfloat16) for n, d in ((h, hd), (kh, dn + dv),
+                                                   (1, 64)))
+    return q, torch.cat([kv[..., :dn], pe.expand(b, s, kh, 64)], -1), \
+        kv[..., dn:]
 
 
 def check_flash_attn() -> float:
     """flash_attn against its plain version (``ref.flash_attention_ref``)
     given the same values in float32 (TF32 off), at Nemotron-H's attention
-    shape, ragged S, G = 1, 4, 16 and both head dims: o within FA_ATOL
-    beyond its bfloat16 rounding, the same bits twice; then one call's
-    launch shape. Returns the largest |o - plain o| (both bfloat16)."""
+    shape, Kimi Linear's latent-attention shape, ragged S, G = 1, 4, 16
+    and every instantiated head-dim pair: o within FA_ATOL beyond its
+    bfloat16 rounding, the same bits twice; then one call's launch shape.
+    Returns the largest |o - plain o| (both bfloat16)."""
     import torch
 
     from repro_torch.kernels import flash_attn, ops, ref
 
     worst = 0.0
-    for b, s, h, kh, hd in (FA_CELL, *FA_CHECKS):
-        q, k, v = _fa_inputs(b, s, h, kh, hd)
+    for shape in (FA_CELL, FA_MLA_CELL, *FA_CHECKS):
+        q, k, v = _fa_inputs(*shape)
+        b, s, h, kh, hd = shape[:5]
         with torch.no_grad():
             o = ops.flash_attn(q, k, v)
             same = torch.equal(o, ops.flash_attn(q, k, v))
@@ -4429,13 +4444,12 @@ def check_flash_attn() -> float:
         plain_err = float((o.float() - o32.to(o.dtype).float()).abs().max())
         flips = float((o != o32.to(o.dtype)).float().mean())
         worst = max(worst, plain_err)
-        log(f"  flash_attn at (B, S, H, KH, hd) = {(b, s, h, kh, hd)}: "
+        log(f"  flash_attn at (B, S, H, KH, hd[, dv]) = {shape}: "
             f"|o - o32| beyond 2^-8 |o32| {err / vmax:.3e} of max |v| (tol "
             f"{FA_ATOL:.2e}); |o - plain o| max {plain_err:.3e}, "
             f"{flips:.3%} of values another bfloat16; same bits twice: "
             f"{same}")
-        check(err <= FA_ATOL * vmax and same,
-              f"flash_attn at {(b, s, h, kh, hd)}")
+        check(err <= FA_ATOL * vmax and same, f"flash_attn at {shape}")
         del q, k, v, o, o32
     q, k, v = _fa_inputs(*FA_CHECKS[0])
     check_launch_shape("flash_attn", lambda: ops.flash_attn(q, k, v),
@@ -4445,44 +4459,53 @@ def check_flash_attn() -> float:
 
 
 def flash_attn_timings() -> dict:
-    """flash_attn at Nemotron-H's attention shape: its CUDA-events median
-    and device time a call, the plain version's, and its bound (the causal
-    q k^T and P v, 2 H hd (S + 1) operations a token at the bfloat16
-    tensor-core rate, or q, k, v and o moved once at 3.35 TB/s, the
-    larger); ``library_ms`` is one call of ``scaled_dot_product_attention``
-    on the same tensors, a yardstick the port never calls."""
+    """flash_attn at Nemotron-H's attention shape and at Kimi Linear's
+    latent-attention shape: its CUDA-events median and device time a call,
+    the plain version's, and its bound (the causal q k^T and P v, H (hd +
+    dv) (S + 1) operations a token at the bfloat16 tensor-core rate, or q,
+    k, v and o moved once at 3.35 TB/s, the larger); ``library_ms`` is one
+    call of ``scaled_dot_product_attention`` on the same tensors, a
+    yardstick the port never calls. ``times`` and ``library_ms`` are
+    Nemotron-H's; ``cells`` holds both shapes."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.analysis import roofline as rl
     from repro_torch.kernels import ops, ref
 
-    b, s, h, kh, hd = FA_CELL
-    q, k, v = _fa_inputs(b, s, h, kh, hd)
-    nbytes = 2 * b * s * hd * (2 * h + 2 * kh)
-    flops = 2 * h * hd * (s + 1) * b * s
-    t_bytes, t_ops = nbytes / rl.HBM_BYTES_PER_S, flops / BF16_PEAK
-    bound = (max(t_bytes, t_ops) * 1e3,
-             "bytes" if t_bytes >= t_ops else "operations")
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    with torch.no_grad():
-        kern = kernel_ms(lambda i: ops.flash_attn(q, k, v), reps=20)
-        plain = kernel_ms(lambda i: ref.flash_attention_ref(q, k, v),
-                          reps=2, rounds=3)
-        library = events_ms(lambda i: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True), reps=20)
-    log(f"  flash_attn at Nemotron-H's attention shape {FA_CELL}: median "
-        f"{kern[0]:.4f} ms a call by CUDA events, device time "
-        f"{kern[1]:.4f} ms; plain version {plain[0]:.3f} ms, device "
-        f"{plain[1]:.3f} ms; scaled_dot_product_attention (yardstick) "
-        f"{library:.4f} ms; bound {bound[0]:.4f} ms by {bound[1]} "
-        f"({nbytes / 1e6:.0f} MB at 3.35 TB/s, {flops / 1e9:.1f} GFLOP at 989 "
-        f"TFLOP/s) -> the events median at {bound[0] / kern[0]:.1%} of "
-        f"bound (the profiler's device time reads low, as for ssd_scan)")
-    del q, k, v, qt, kt, vt
-    torch.cuda.empty_cache()
-    return {"times": (kern, plain, bound), "library_ms": library,
-            "shape": list(FA_CELL), "bytes": nbytes, "flops": flops}
+    cells = {}
+    for name, shape in (("Nemotron-H's attention", FA_CELL),
+                        ("Kimi Linear's latent attention", FA_MLA_CELL)):
+        b, s, h, kh, hd = shape[:5]
+        dv = shape[5] if len(shape) > 5 else hd
+        q, k, v = _fa_inputs(*shape)
+        nbytes = 2 * b * s * (h * (hd + dv) + kh * (hd + dv))
+        flops = h * (hd + dv) * (s + 1) * b * s
+        t_bytes, t_ops = nbytes / rl.HBM_BYTES_PER_S, flops / BF16_PEAK
+        bound = (max(t_bytes, t_ops) * 1e3,
+                 "bytes" if t_bytes >= t_ops else "operations")
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        with torch.no_grad():
+            kern = kernel_ms(lambda i: ops.flash_attn(q, k, v), reps=20)
+            plain = kernel_ms(lambda i: ref.flash_attention_ref(q, k, v),
+                              reps=2, rounds=3)
+            library = events_ms(lambda i: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True), reps=20)
+        log(f"  flash_attn at {name} shape {shape}: median "
+            f"{kern[0]:.4f} ms a call by CUDA events, device time "
+            f"{kern[1]:.4f} ms; plain version {plain[0]:.3f} ms, device "
+            f"{plain[1]:.3f} ms; scaled_dot_product_attention (yardstick) "
+            f"{library:.4f} ms; bound {bound[0]:.4f} ms by {bound[1]} "
+            f"({nbytes / 1e6:.0f} MB at 3.35 TB/s, {flops / 1e9:.1f} GFLOP "
+            f"at 989 TFLOP/s) -> the events median at "
+            f"{bound[0] / kern[0]:.1%} of bound (the profiler's device time "
+            f"reads low, as for ssd_scan)")
+        cells[name] = {"times": (kern, plain, bound), "library_ms": library,
+                       "shape": list(shape), "bytes": nbytes,
+                       "flops": flops}
+        del q, k, v, qt, kt, vt
+        torch.cuda.empty_cache()
+    return {**cells["Nemotron-H's attention"], "cells": cells}
 
 
 def stream_timings(strat_h0) -> tuple:

@@ -57,7 +57,7 @@ _SIGNATURES = {
                             ctypes.c_longlong, _I, _P, _P, _P, _P, _P, _I, _I,
                             _I, _I, _I, _I, _I, _P]),
     "repro_flash_attn": (_I, [_P, _LL, _LL, _LL, _P, _LL, _LL, _LL, _P, _LL,
-                              _LL, _LL, _P, _I, _I, _I, _I, _I, _P]),
+                              _LL, _LL, _P, _I, _I, _I, _I, _I, _I, _P]),
 }
 
 _LOCK = threading.Lock()

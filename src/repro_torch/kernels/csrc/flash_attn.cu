@@ -1,14 +1,16 @@
 // Causal grouped-query attention, forward, in one launch: for each (batch
 // b, query head h) and each query row t,
 //
-//   o_t = sum_{s <= t} softmax_s(q_t . k_s / sqrt(hd)) v_s
+//   o_t = sum_{s <= t} softmax_s(q_t . k_s / sqrt(dk)) v_s
 //
-// where query head h reads KV head h / G (G = H / KH). q (B, S, H, hd) and
-// k, v (B, S, KH, hd) are bfloat16 read in place through their strides (the
-// projections' views); o (B, S, H, hd) bfloat16 is written once. The
-// streaming softmax keeps its running max m, sum l and accumulator in
-// float32 registers; masked scores are -inf and the output divides by l, as
-// the plain version (kernels/ref.py::flash_attention_ref) does.
+// where query head h reads KV head h / G (G = H / KH). q (B, S, H, dk), k
+// (B, S, KH, dk) and v (B, S, KH, dv) are bfloat16 read in place through
+// their strides (the projections' views); o (B, S, H, dv) bfloat16 is
+// written once. The value heads may be narrower than the key heads, as in
+// latent attention (dk 192 = 128 + 64, dv 128). The streaming softmax keeps
+// its running max m, sum l and accumulator in float32 registers; masked
+// scores are -inf and the output divides by l, as the plain version
+// (kernels/ref.py::flash_attention_ref) does.
 //
 // Replaces no TPU kernel: the JAX package's attention is plain jnp
 // (src/repro/models/layers.py::flash_attention), which XLA fuses on the
@@ -18,22 +20,25 @@
 // head) block to device memory and reads it back in six to eight eager
 // passes; this kernel keeps scores and probabilities in registers.
 //
-// What bounds it on an H100: operations. The causal QK^T and PV of
-// Nemotron-H's attention layer at 4 x 4,096 tokens, 32 query heads of 128
-// and 2 KV heads are 2 H hd (S + 1) FLOPs a token, 550 GFLOP, 0.556 ms at
-// the 989 TFLOP/s bfloat16 tensor-core rate; q, k, v and o are 285 MB,
-// 0.085 ms at 3.35 TB/s.
+// What bounds it on an H100: operations. The causal QK^T and PV are H (dk
+// + dv) (S + 1) FLOPs a token. Nemotron-H's attention layer at 4 x 4,096
+// tokens, 32 query heads of 128 and 2 KV heads: 550 GFLOP, 0.556 ms at the
+// 989 TFLOP/s bfloat16 tensor-core rate; q, k, v and o are 285 MB, 0.085
+// ms at 3.35 TB/s. Kimi Linear's latent attention at 2 x 8,192 tokens, 32
+// heads of dk 192 and dv 128 (one KV head a query head): 1.374 TFLOP, 1.39
+// ms; q, k, v and o are ~0.67 GB, 0.2 ms.
 //
 // Design: one block of 4 warps per (64 query rows, h, b), two blocks on an
 // SM; warp w owns rows 16w..16w+15 and keeps their q fragments in
 // registers for the whole key loop. K and V stream through shared memory
-// in tiles of 64 keys, two buffers, the next tile's cp.async in flight
-// while the current one is computed, one block-wide barrier a tile. Both
-// products run on mma.sync m16n8k16 bfloat16 tensor cores with float32
-// accumulation: q k^T from the bfloat16 operands as they are (exact
-// products), then P, the probabilities 2^(s log2(e) / sqrt(hd) - m'),
-// rounded to bfloat16 in registers and fed as the A operand of P V
-// straight from the score accumulators' layout. The key loop stops at the
+// in tiles of 64 keys (rows of dk and dv, each padded by 16 bytes), two
+// buffers, the next tile's cp.async in flight while the current one is
+// computed, one block-wide barrier a tile. Both products run on mma.sync
+// m16n8k16 bfloat16 tensor cores with float32 accumulation: q k^T from the
+// bfloat16 operands as they are (exact products), then P, the
+// probabilities 2^(s log2(e) / sqrt(dk) - m'), rounded to bfloat16 in
+// registers and fed as the A operand of P V straight from the score
+// accumulators' layout. The key loop stops at the
 // diagonal tile, a warp skips a tile that lies wholly above its rows and
 // masks only the tile that crosses them. Blocks of the last (longest) row
 // tiles launch first, and the heads of one KV group are neighbours in the
@@ -113,17 +118,21 @@ __device__ __forceinline__ float exp2_approx(float x) {
   return y;
 }
 
-template <int HD>
+template <int DK, int DV>
 struct Tile {
   // padded rows (elements): 16 bytes more than the data, so the 8 rows of
   // an ldmatrix 8 x 8 tile fall on distinct banks
-  static constexpr int kLd = HD + 8;
-  // the q tile (later the output's staging), then K and V, kStages each
-  static constexpr int kSmem = (kM + 2 * kStages * kN) * kLd * 2;
-  static_assert(HD % 16 == 0, "head_dim a multiple of 16");
+  static constexpr int kLdK = DK + 8, kLdV = DV + 8;
+  // the q tile (later the output's staging), K then V, kStages each:
+  // (64, 64) 55,296 bytes, (128, 128) 104,448, (192, 128) 111,616, two
+  // blocks an SM within its 228 KB
+  static constexpr int kSmem =
+      ((kM + kStages * kN) * kLdK + kStages * kN * kLdV) * 2;
+  static_assert(DK % 16 == 0 && DV % 16 == 0, "head dims multiples of 16");
+  static_assert(DV <= DK, "the q tile stages the output");
 };
 
-template <int HD>
+template <int DK, int DV>
 __global__ void __launch_bounds__(kThreads, 2)
 flash_attn_kernel(const bf16* __restrict__ q, long long q_bs, long long q_rs,
                   long long q_hs, const bf16* __restrict__ k, long long k_bs,
@@ -131,11 +140,12 @@ flash_attn_kernel(const bf16* __restrict__ q, long long q_bs, long long q_rs,
                   long long v_bs, long long v_rs, long long v_hs,
                   bf16* __restrict__ o, int S, int H, int G,
                   float scale_log2) {
-  constexpr int kLd = Tile<HD>::kLd, kChunks = HD / 8;
+  constexpr int kLdK = Tile<DK, DV>::kLdK, kLdV = Tile<DK, DV>::kLdV;
+  constexpr int kChunksK = DK / 8, kChunksV = DV / 8;
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* sq = reinterpret_cast<bf16*>(smem);
-  bf16* sk = sq + kM * kLd;              // [kStages][kN][kLd]
-  bf16* sv = sk + kStages * kN * kLd;    // [kStages][kN][kLd]
+  bf16* sk = sq + kM * kLdK;              // [kStages][kN][kLdK]
+  bf16* sv = sk + kStages * kN * kLdK;    // [kStages][kN][kLdV]
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, tq = lane & 3;
@@ -146,22 +156,33 @@ flash_attn_kernel(const bf16* __restrict__ q, long long q_bs, long long q_rs,
   const bf16* vp = v + b * v_bs + (h / G) * v_hs;
   const int n_tiles = (min(m0 + kM, S) - 1) / kN + 1;
 
-  for (int i = threadIdx.x; i < kM * kChunks; i += kThreads) {
-    const int r = i / kChunks, c = i - r * kChunks;
+  for (int i = threadIdx.x; i < kM * kChunksK; i += kThreads) {
+    const int r = i / kChunksK, c = i - r * kChunksK;
     const bool ok = m0 + r < S;
-    cp_async16(sq + r * kLd + c * 8, qp + (ok ? m0 + r : 0) * q_rs + c * 8,
+    cp_async16(sq + r * kLdK + c * 8, qp + (ok ? m0 + r : 0) * q_rs + c * 8,
                ok);
   }
+  // a K piece and a V piece together where the widths agree, else K then V
   auto load_kv = [&](int j) {
-    bf16* ks = sk + (j % kStages) * kN * kLd;
-    bf16* vs = sv + (j % kStages) * kN * kLd;
-    for (int i = threadIdx.x; i < kN * kChunks; i += kThreads) {
-      const int r = i / kChunks, c = i - r * kChunks;
+    bf16* ks = sk + (j % kStages) * kN * kLdK;
+    bf16* vs = sv + (j % kStages) * kN * kLdV;
+    for (int i = threadIdx.x; i < kN * kChunksK; i += kThreads) {
+      const int r = i / kChunksK, c = i - r * kChunksK;
       const int key = j * kN + r;
       const bool ok = key < S;
       const long long row = ok ? key : 0;
-      cp_async16(ks + r * kLd + c * 8, kp + row * k_rs + c * 8, ok);
-      cp_async16(vs + r * kLd + c * 8, vp + row * v_rs + c * 8, ok);
+      cp_async16(ks + r * kLdK + c * 8, kp + row * k_rs + c * 8, ok);
+      if constexpr (DV == DK)
+        cp_async16(vs + r * kLdV + c * 8, vp + row * v_rs + c * 8, ok);
+    }
+    if constexpr (DV != DK) {
+      for (int i = threadIdx.x; i < kN * kChunksV; i += kThreads) {
+        const int r = i / kChunksV, c = i - r * kChunksV;
+        const int key = j * kN + r;
+        const bool ok = key < S;
+        const long long row = ok ? key : 0;
+        cp_async16(vs + r * kLdV + c * 8, vp + row * v_rs + c * 8, ok);
+      }
     }
   };
   load_kv(0);
@@ -172,10 +193,10 @@ flash_attn_kernel(const bf16* __restrict__ q, long long q_bs, long long q_rs,
   const int first = m0 + r0, last = first + 15;
   const int row_lo = first + g, row_hi = row_lo + 8;
   const float neg_inf = __int_as_float(0xff800000);
-  uint32_t qf[HD / 16][4];
-  float acc[HD / 8][4];
+  uint32_t qf[DK / 16][4];
+  float acc[DV / 8][4];
 #pragma unroll
-  for (int dt = 0; dt < HD / 8; ++dt)
+  for (int dt = 0; dt < DV / 8; ++dt)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[dt][e] = 0.f;
   float m_lo = neg_inf, m_hi = neg_inf, l_lo = 0.f, l_hi = 0.f;
@@ -191,14 +212,14 @@ flash_attn_kernel(const bf16* __restrict__ q, long long q_bs, long long q_rs,
     }
     if (j == 0) {
 #pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk)
-        ldsm_x4(qf[kk], sq + (r0 + (lane & 15)) * kLd + kk * 16 +
+      for (int kk = 0; kk < DK / 16; ++kk)
+        ldsm_x4(qf[kk], sq + (r0 + (lane & 15)) * kLdK + kk * 16 +
                             ((lane >> 4) << 3));
     }
     const int k0 = j * kN;
     if (k0 <= last) {
-      const bf16* ks = sk + (j % kStages) * kN * kLd;
-      const bf16* vs = sv + (j % kStages) * kN * kLd;
+      const bf16* ks = sk + (j % kStages) * kN * kLdK;
+      const bf16* vs = sv + (j % kStages) * kN * kLdV;
       // s = q k^T over this tile's keys, 16 x kN a warp
       float s[kN / 8][4];
 #pragma unroll
@@ -206,11 +227,11 @@ flash_attn_kernel(const bf16* __restrict__ q, long long q_bs, long long q_rs,
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
 #pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk) {
+      for (int kk = 0; kk < DK / 16; ++kk) {
 #pragma unroll
         for (int np = 0; np < kN / 16; ++np) {
           uint32_t kb[4];
-          ldsm_x4(kb, ks + (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * kLd +
+          ldsm_x4(kb, ks + (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * kLdK +
                           kk * 16 + (((lane >> 3) & 1) << 3));
           mma(s[2 * np], qf[kk], kb[0], kb[1]);
           mma(s[2 * np + 1], qf[kk], kb[2], kb[3]);
@@ -245,7 +266,7 @@ flash_attn_kernel(const bf16* __restrict__ q, long long q_bs, long long q_rs,
       l_lo *= c_lo;
       l_hi *= c_hi;
 #pragma unroll
-      for (int dt = 0; dt < HD / 8; ++dt) {
+      for (int dt = 0; dt < DV / 8; ++dt) {
         acc[dt][0] *= c_lo;
         acc[dt][1] *= c_lo;
         acc[dt][2] *= c_hi;
@@ -273,10 +294,10 @@ flash_attn_kernel(const bf16* __restrict__ q, long long q_bs, long long q_rs,
 #pragma unroll
       for (int kk = 0; kk < kN / 16; ++kk) {
 #pragma unroll
-        for (int dp = 0; dp < HD / 16; ++dp) {
+        for (int dp = 0; dp < DV / 16; ++dp) {
           uint32_t vb[4];
           ldsm_x4_t(vb, vs + (kk * 16 + (lane & 7) +
-                              (((lane >> 3) & 1) << 3)) * kLd +
+                              (((lane >> 3) & 1) << 3)) * kLdV +
                             dp * 16 + ((lane >> 4) << 3));
           mma(acc[2 * dp], pa[kk], vb[0], vb[1]);
           mma(acc[2 * dp + 1], pa[kk], vb[2], vb[3]);
@@ -292,40 +313,41 @@ flash_attn_kernel(const bf16* __restrict__ q, long long q_bs, long long q_rs,
     l_lo += __shfl_xor_sync(kFull, l_lo, off);
     l_hi += __shfl_xor_sync(kFull, l_hi, off);
   }
-  bf16* stage = sq + r0 * kLd;
+  bf16* stage = sq + r0 * kLdK;
 #pragma unroll
-  for (int dt = 0; dt < HD / 8; ++dt) {
+  for (int dt = 0; dt < DV / 8; ++dt) {
     const int d = dt * 8 + 2 * tq;
-    *reinterpret_cast<uint32_t*>(stage + g * kLd + d) =
+    *reinterpret_cast<uint32_t*>(stage + g * kLdK + d) =
         pack(acc[dt][0] / l_lo, acc[dt][1] / l_lo);
-    *reinterpret_cast<uint32_t*>(stage + (g + 8) * kLd + d) =
+    *reinterpret_cast<uint32_t*>(stage + (g + 8) * kLdK + d) =
         pack(acc[dt][2] / l_hi, acc[dt][3] / l_hi);
   }
   __syncwarp();
-  for (int i = lane; i < 16 * kChunks; i += 32) {
-    const int r = i / kChunks, c = i - r * kChunks;
+  for (int i = lane; i < 16 * kChunksV; i += 32) {
+    const int r = i / kChunksV, c = i - r * kChunksV;
     const int row = first + r;
     if (row < S) {
       *reinterpret_cast<uint4*>(
-          o + ((static_cast<long long>(b) * S + row) * H + h) * HD + c * 8) =
-          *reinterpret_cast<const uint4*>(stage + r * kLd + c * 8);
+          o + ((static_cast<long long>(b) * S + row) * H + h) * DV + c * 8) =
+          *reinterpret_cast<const uint4*>(stage + r * kLdK + c * 8);
     }
   }
 }
 
-template <int HD>
+template <int DK, int DV>
 int launch(const bf16* q, long long q_bs, long long q_rs, long long q_hs,
            const bf16* k, long long k_bs, long long k_rs, long long k_hs,
            const bf16* v, long long v_bs, long long v_rs, long long v_hs,
            bf16* o, int batch, int S, int H, int G, cudaStream_t st) {
-  auto* kern = flash_attn_kernel<HD>;
+  auto* kern = flash_attn_kernel<DK, DV>;
+  constexpr int kSmem = Tile<DK, DV>::kSmem;
   cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, Tile<HD>::kSmem);
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const float scale_log2 =
-      static_cast<float>(1.4426950408889634 / sqrt(static_cast<double>(HD)));
+      static_cast<float>(1.4426950408889634 / sqrt(static_cast<double>(DK)));
   const dim3 grid(H, batch, (S + kM - 1) / kM);
-  kern<<<grid, kThreads, Tile<HD>::kSmem, st>>>(
+  kern<<<grid, kThreads, kSmem, st>>>(
       q, q_bs, q_rs, q_hs, k, k_bs, k_rs, k_hs, v, v_bs, v_rs, v_hs, o, S, H,
       G, scale_log2);
   return static_cast<int>(cudaGetLastError());
@@ -335,16 +357,18 @@ int launch(const bf16* q, long long q_bs, long long q_rs, long long q_hs,
 
 extern "C" {
 
-// o (batch, S, H, HD) bfloat16, contiguous, from q (row s of batch b, head
-// h at q + b q_bs + s q_rs + h q_hs), k and v (the same with KH heads),
-// causal, query head h reading KV head h / (H / KH). Pointers and strides
-// 16-byte aligned, each row's HD values contiguous; HD 64 or 128. One
-// launch on `stream`, no other device work.
+// o (batch, S, H, DV) bfloat16, contiguous, from q (row s of batch b, head
+// h at q + b q_bs + s q_rs + h q_hs, DK values), k (the same with KH heads,
+// DK values) and v (KH heads, DV values), causal, query head h reading KV
+// head h / (H / KH), scaled by DK^-1/2. Pointers and strides 16-byte
+// aligned, each row's values contiguous; (DK, DV) (64, 64), (128, 128) or
+// (192, 128). One launch on `stream`, no other device work.
 int repro_flash_attn(const void* q, long long q_bs, long long q_rs,
                      long long q_hs, const void* k, long long k_bs,
                      long long k_rs, long long k_hs, const void* v,
                      long long v_bs, long long v_rs, long long v_hs, void* o,
-                     int batch, int S, int H, int KH, int HD, void* stream) {
+                     int batch, int S, int H, int KH, int DK, int DV,
+                     void* stream) {
   if (batch <= 0 || S <= 0 || H <= 0 || KH <= 0 || H % KH != 0 ||
       batch > 65535 || (S + kM - 1) / kM > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -353,12 +377,15 @@ int repro_flash_attn(const void* q, long long q_bs, long long q_rs,
   const bf16* kb = static_cast<const bf16*>(k);
   const bf16* vb = static_cast<const bf16*>(v);
   bf16* ob = static_cast<bf16*>(o);
-  if (HD == 128)
-    return launch<128>(qb, q_bs, q_rs, q_hs, kb, k_bs, k_rs, k_hs, vb, v_bs,
-                       v_rs, v_hs, ob, batch, S, H, H / KH, st);
-  if (HD == 64)
-    return launch<64>(qb, q_bs, q_rs, q_hs, kb, k_bs, k_rs, k_hs, vb, v_bs,
-                      v_rs, v_hs, ob, batch, S, H, H / KH, st);
+  if (DK == 128 && DV == 128)
+    return launch<128, 128>(qb, q_bs, q_rs, q_hs, kb, k_bs, k_rs, k_hs, vb,
+                            v_bs, v_rs, v_hs, ob, batch, S, H, H / KH, st);
+  if (DK == 64 && DV == 64)
+    return launch<64, 64>(qb, q_bs, q_rs, q_hs, kb, k_bs, k_rs, k_hs, vb,
+                          v_bs, v_rs, v_hs, ob, batch, S, H, H / KH, st);
+  if (DK == 192 && DV == 128)
+    return launch<192, 128>(qb, q_bs, q_rs, q_hs, kb, k_bs, k_rs, k_hs, vb,
+                            v_bs, v_rs, v_hs, ob, batch, S, H, H / KH, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -1,7 +1,9 @@
 """Wrapper of the causal grouped-query flash-attention kernel
 (``csrc/flash_attn.cu``): q k^T, the streaming softmax and P v of every
 query head in one launch, reading q, k and v in place through their strides
-and writing o once in bfloat16.
+and writing o once in bfloat16. It takes the (key, value) head dims in
+``HEAD_DIMS``: (64, 64), Nemotron-H's (128, 128), and latent attention's
+(192, 128), whose value heads are narrower than its query and key heads.
 
 Replaces no TPU kernel: the JAX package's attention is plain ``jnp``, which
 XLA fuses on the TPU. The plain version (``ref.flash_attention_ref``) runs
@@ -26,8 +28,9 @@ Tensor = torch.Tensor
 
 # kernel launches in one such call, and no other device operation
 KERNELS_PER_CALL = 1
-# the head dims the library instantiates: Nemotron-H's 128, and 64
-HEAD_DIMS = (64, 128)
+# the (q and k, v) head dims the library instantiates: 64, Nemotron-H's
+# 128, and Kimi Linear's latent attention (128 + 64 for q and k, 128 for v)
+HEAD_DIMS = ((64, 64), (128, 128), (192, 128))
 # the launch grid is (H, B, S / 64): y and z stop at 65,535
 MAX_BATCH, MAX_LEN = 65_535, 65_535 * 64
 
@@ -43,9 +46,9 @@ def takes_kernel(q: Tensor, k: Tensor, v: Tensor, *, causal: bool,
                  window: int, kv_len: Optional[Tensor]) -> bool:
     """The kernel takes causal attention over the whole sequence (no
     window, no ``kv_len``) of bfloat16 tensors on one card that need no
-    gradient, q (B, S, H, hd) and k, v (B, S, KH, hd) with H a multiple
-    of KH, hd in HEAD_DIMS, B and S within the grid's limits and rows as
-    ``_rows_ok`` says."""
+    gradient, q (B, S, H, dk), k (B, S, KH, dk) and v (B, S, KH, dv) with
+    H a multiple of KH, (dk, dv) in HEAD_DIMS, B and S within the grid's
+    limits and rows as ``_rows_ok`` says."""
     if not (q.is_cuda and causal and window <= 0 and kv_len is None):
         return False
     ts = (q, k, v)
@@ -53,35 +56,39 @@ def takes_kernel(q: Tensor, k: Tensor, v: Tensor, *, causal: bool,
                 and t.device == q.device for t in ts)
             and not (torch.is_grad_enabled()
                      and any(t.requires_grad for t in ts))
-            and k.shape == v.shape and k.shape[:2] == q.shape[:2]
+            and k.shape[:3] == v.shape[:3] and k.shape[:2] == q.shape[:2]
             and k.shape[3] == q.shape[3]
             and 1 <= q.shape[1] <= MAX_LEN and q.shape[0] <= MAX_BATCH
-            and q.shape[3] in HEAD_DIMS and q.shape[2] % k.shape[2] == 0
+            and (q.shape[3], v.shape[3]) in HEAD_DIMS
+            and q.shape[2] % k.shape[2] == 0
             and all(_rows_ok(t) for t in ts))
 
 
 def flash_attn(q: Tensor, k: Tensor, v: Tensor) -> Tensor:
-    """Causal GQA, o (B, S, H, hd) in q's dtype: query head h reads KV
-    head h // (H / KH). On a card one kernel launch, for inputs that
-    ``takes_kernel`` accepts, and a raise for any other; on the CPU the
-    plain version."""
+    """Causal GQA, o (B, S, H, dv) in q's dtype: query head h reads KV
+    head h // (H / KH), scaled by dk^-1/2. On a card one kernel launch,
+    for inputs that ``takes_kernel`` accepts, and a raise for any other;
+    on the CPU the plain version."""
     if not q.is_cuda:
         return ref.flash_attention_ref(q, k, v, causal=True)
-    if q.dim() != 4 or q.shape[3] not in HEAD_DIMS:
-        raise ValueError(f"flash_attn: head_dim of q {tuple(q.shape)} is "
-                         f"not instantiated; the kernel takes {HEAD_DIMS}")
+    if q.dim() != 4 or v.dim() != 4 or (q.shape[3],
+                                        v.shape[3]) not in HEAD_DIMS:
+        raise ValueError(f"flash_attn: head dims of q {tuple(q.shape)} and "
+                         f"v {tuple(v.shape)} are not instantiated; the "
+                         f"kernel takes (dk, dv) in {HEAD_DIMS}")
     if not takes_kernel(q, k, v, causal=True, window=-1, kv_len=None):
         raise TypeError(
-            f"flash_attn: the kernel takes bfloat16 q (B, S, H, hd) and k, v "
-            f"(B, S, KH, hd) on one card, H a multiple of KH, needing no "
-            f"gradient, with contiguous 16-byte aligned rows; got q "
-            f"{tuple(q.shape)} {q.dtype} strides {q.stride()}, k "
+            f"flash_attn: the kernel takes bfloat16 q (B, S, H, dk), k (B, "
+            f"S, KH, dk) and v (B, S, KH, dv) on one card, H a multiple of "
+            f"KH, needing no gradient, with contiguous 16-byte aligned rows; "
+            f"got q {tuple(q.shape)} {q.dtype} strides {q.stride()}, k "
             f"{tuple(k.shape)} {k.dtype}, v {tuple(v.shape)} {v.dtype}")
-    b, s, h, hd = q.shape
-    o = torch.empty(b, s, h, hd, dtype=q.dtype, device=q.device)
+    b, s, h, dk = q.shape
+    dv = v.shape[3]
+    o = torch.empty(b, s, h, dv, dtype=q.dtype, device=q.device)
     _build.check(_build.library().repro_flash_attn(
         q.data_ptr(), *q.stride()[:3], k.data_ptr(), *k.stride()[:3],
-        v.data_ptr(), *v.stride()[:3], o.data_ptr(), b, s, h, k.shape[2], hd,
-        _build.stream()), "flash_attn")
+        v.data_ptr(), *v.stride()[:3], o.data_ptr(), b, s, h, k.shape[2], dk,
+        dv, _build.stream()), "flash_attn")
     _build.LAUNCHES.add("flash_attn")
     return o

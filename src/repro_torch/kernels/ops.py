@@ -165,7 +165,7 @@ def ssd_scan(xh: Tensor, dt: Tensor, a: Tensor, bb: Tensor, cc: Tensor,
 
 
 def flash_attn(q: Tensor, k: Tensor, v: Tensor) -> Tensor:
-    """Causal GQA over the whole sequence, o (B, S, H, hd) in q's dtype,
+    """Causal GQA over the whole sequence, o (B, S, H, dv) in q's dtype,
     query head h reading KV head h // (H / KH)
     (``flash_attn.flash_attn``)."""
     _count("flash_attn", q)

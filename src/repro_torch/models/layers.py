@@ -185,7 +185,9 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
     window). kv_len: optional (B,) valid KV length.
 
     Decided once, by ``flash_attn.takes_kernel``: causal bfloat16 attention
-    on a card with no window, no ``kv_len`` and no gradient goes to the
+    on a card with no window, no ``kv_len`` and no gradient, whose (q and
+    k, v) head dims are an instantiated pair (``flash_attn.HEAD_DIMS``:
+    (64, 64), (128, 128) and latent attention's (192, 128)), goes to the
     kernel (``ops.flash_attn``); everything else runs the float32 streaming
     softmax ``ref.flash_attention_ref``, blocked by ``q_chunk`` and
     ``kv_chunk`` as the reference is.

@@ -179,8 +179,9 @@ def mla_mixer(p, cfg, h: Tensor) -> Tensor:
     dim)^-1/2 and the output projection. No rotary embedding
     (``mla_use_nope``: the KDA layers carry position). Span ``mla.mix``
     with the card's time; its ``path`` is "kernel" where
-    ``flash_attn.takes_kernel`` holds for q, k and v (it refuses value
-    heads narrower than the keys'), else "eager"."""
+    ``flash_attn.takes_kernel`` holds for q, k and v (it takes the
+    published 192/128 heads; v is read in place as a view of the KV
+    expansion), else "eager"."""
     b, s, _ = h.shape
     n, r = cfg.n_heads, cfg.kv_lora_rank
     dn, dr = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim

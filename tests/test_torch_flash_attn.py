@@ -110,7 +110,8 @@ def test_value_heads_narrower_than_query_heads(causal, g, chunk):
     """Latent attention's shapes: q and k heads of 192, v heads of 128; the
     output takes v's head dim and the scale q's, as an explicit softmax
     (float64 against float32 blocks: the same sums in other orders). The
-    kernel's predicate refuses them."""
+    kernel's predicate takes them on a card in the layout ``mla_mixer``
+    hands over: v a strided view of the (B, S, KH 256) KV expansion."""
     b, s, kh, hd, dv = 2, 45, 2, 192, 128
     q, k, v = (_x((b, s, kh * g, hd), 5), _x((b, s, kh, hd), 6),
                _x((b, s, kh, dv), 7))
@@ -124,9 +125,10 @@ def test_value_heads_narrower_than_query_heads(causal, g, chunk):
                                 -torch.inf)
         want = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(sc, -1), vv)
         torch.testing.assert_close(o.double(), want, rtol=1e-5, atol=1e-6)
-    card = [_OnCard(t.bfloat16()) for t in (q, k, v)]
-    assert not fa_mod.takes_kernel(*card, causal=True, window=-1,
-                                   kv_len=None)
+    q, k, v = _latent(b, s, kh * g, kh)
+    assert v.stride() == (s * kh * 256, kh * 256, 256, 1)
+    assert fa_mod.takes_kernel(*map(_OnCard, (q, k, v)), causal=True,
+                               window=-1, kv_len=None)
 
 
 def test_plain_path_digests_equal_the_parents():
@@ -168,6 +170,22 @@ class _OnCard:
         return self.t.data_ptr()
 
 
+def _latent(b=2, s=48, h=32, kh=32, dn=128, dr=64, dv=128, v_at=None,
+            grad=False):
+    """q, k and v as ``mla_mixer`` hands them over: q a (B, S, H, dn + dr)
+    view of its projection, k the (B, S, KH, dn + dr) concatenation of the
+    KV expansion's key part and the shared part, and v a strided view of
+    the (B, S, KH (dn + dv)) expansion, from element ``v_at`` (dn) of each
+    head's row."""
+    v_at = dn if v_at is None else v_at
+    q = torch.zeros(b, s, h * (dn + dr), dtype=torch.bfloat16).reshape(
+        b, s, h, dn + dr)
+    kv = torch.zeros(b, s, kh * (dn + dv), dtype=torch.bfloat16,
+                     requires_grad=grad).reshape(b, s, kh, dn + dv)
+    pe = torch.zeros(b, s, 1, dr, dtype=torch.bfloat16).expand(b, s, kh, dr)
+    return q, torch.cat([kv[..., :dn], pe], -1), kv[..., v_at:v_at + dv]
+
+
 def _projected(b=2, s=48, h=32, kh=2, hd=128, dtype=torch.bfloat16):
     """q, k and v as the projections hand them over: (B, S, n, hd) views
     of (B, S, n hd) products."""
@@ -184,17 +202,31 @@ def _projected(b=2, s=48, h=32, kh=2, hd=128, dtype=torch.bfloat16):
     ("q_requires_grad", True, False), ("q_requires_grad", False, True),
     ("v_requires_grad", True, False), ("heads_not_grouped", False, False),
     ("cross_lengths", False, False), ("misaligned", False, False),
-    ("inner_stride", False, False), ("too_long", False, False)])
+    ("inner_stride", False, False), ("too_long", False, False),
+    ("mla", False, True), ("mla", True, True),
+    ("mla_v_requires_grad", True, False), ("mla_192_192", False, False),
+    ("mla_128_64", False, False), ("mla_v_misaligned", False, False),
+    ("mla_v_other_length", False, False),
+    ("mla_v_other_batch", False, False)])
 def test_dispatch_reads_the_inputs(case, grad, want):
     """A causal bfloat16 card input with no window, no ``kv_len``, an
-    instantiated head dim, H a multiple of KH, one length for q and k and
-    aligned rows takes the kernel unless a gradient is needed; everything
-    else runs the plain version."""
+    instantiated (q and k, v) head-dim pair, H a multiple of KH, one
+    length for q and k (and one batch and length for k and v) and aligned
+    rows takes the kernel unless a gradient is needed; everything else
+    runs the plain version. "mla": latent attention's 32 heads of 192 / 128
+    as ``mla_mixer`` hands them over."""
     kw = dict(causal=True, window=-1, kv_len=None)
     shape = dict(head_dim_64={"hd": 64}, one_kv_head_each={"kh": 32},
                  head_dim_80={"hd": 80}, float32={"dtype": torch.float32},
                  heads_not_grouped={"h": 30, "kh": 4}).get(case, {})
-    q, k, v = _projected(**shape)
+    latent = dict(mla={}, mla_v_requires_grad={"grad": True},
+                  mla_192_192={"dv": 192}, mla_128_64={"dn": 64, "dv": 64},
+                  mla_v_misaligned={"v_at": 124}, mla_v_other_length={},
+                  mla_v_other_batch={})
+    if case in latent:
+        q, k, v = _latent(**latent[case])
+    else:
+        q, k, v = _projected(**shape)
     if case == "window":
         kw["window"] = 16
     elif case == "kv_len":
@@ -207,6 +239,10 @@ def test_dispatch_reads_the_inputs(case, grad, want):
         v.requires_grad_()
     elif case == "cross_lengths":
         k, v = k[:, :40], v[:, :40]
+    elif case == "mla_v_other_length":
+        v = v[:, :40]
+    elif case == "mla_v_other_batch":
+        v = v[:1]
     elif case == "misaligned":
         q = torch.zeros(2 * 48 * 32 * 128 + 1, dtype=torch.bfloat16)[1:] \
             .reshape(2, 48, 32, 128)
@@ -218,6 +254,20 @@ def test_dispatch_reads_the_inputs(case, grad, want):
     wrap = (lambda t: t) if case == "cpu" else _OnCard
     with torch.set_grad_enabled(grad):
         assert fa_mod.takes_kernel(wrap(q), wrap(k), wrap(v), **kw) is want
+
+
+@pytest.mark.parametrize("dn,dr,dv", [(128, 64, 64), (64, 32, 128),
+                                      (128, 64, 192), (16, 8, 16)])
+def test_the_wrapper_raises_on_a_pair_it_does_not_instantiate(dn, dr, dv):
+    """``ops.flash_attn`` on card inputs whose (q and k, v) head dims are
+    not in ``HEAD_DIMS`` raises ``ValueError`` before it builds or
+    launches anything."""
+    assert (dn + dr, dv) not in fa_mod.HEAD_DIMS
+    ops.reset_launch_counts()
+    with pytest.raises(ValueError, match="not instantiated"):
+        ops.flash_attn(*map(_OnCard, _latent(h=4, kh=4, dn=dn, dr=dr,
+                                             dv=dv)))
+    assert ops.launch_counts()["flash_attn"] == 0
 
 
 def test_the_wrapper_on_the_cpu_is_the_plain_version():

@@ -27,8 +27,15 @@ This file imports no JAX: the card's machine has none.
   shape and at ragged S over G = 1, 4 and 16 and both head dims, the same
   bits twice; one launch and ``path="kernel"`` a Nemotron-H attention
   layer; what ``takes_kernel`` refuses runs the plain version without a
-  launch, and the wrapper raises on it.
+  launch, and the wrapper raises on it; the (128, 128) and (64, 64)
+  instantiations keep the bits they had before the (192, 128) one came
+  (SHA-256 digests of fixed inputs' outputs);
+- the same kernel at latent attention's heads (q and k 192, v 128), with
+  v a strided view of the KV expansion as ``mla_mixer`` hands it over: at
+  Kimi Linear's shape (2 x 8,192 tokens, 32 heads) and at ragged S, the
+  same bits twice, one launch; ``mla_mixer`` runs it, ``path="kernel"``.
 """
+import hashlib
 import json
 
 import numpy as np
@@ -312,11 +319,27 @@ def _fa_inputs(b, s, h, kh, hd, card, fused=True, seed=0):
             qkv[..., (h + kh) * hd:].reshape(b, s, kh, hd))
 
 
+def _mla_inputs(b, s, h, card, seed=0):
+    """q (B, S, H, 192), k (B, S, H, 192) and v (B, S, H, 128) bfloat16 as
+    ``mla_mixer`` hands them over: q a view of its projection, k the
+    concatenation of the KV expansion's 128-wide key part and a 64-wide
+    part shared by the heads, v a strided view of the (B, S, H 256)
+    expansion (offset 128, row stride 256)."""
+    gen = torch.Generator(device=card).manual_seed(seed)
+    q = torch.randn(b, s, h * 192, device=card, generator=gen).to(
+        torch.bfloat16).reshape(b, s, h, 192)
+    kv = torch.randn(b, s, h * 256, device=card, generator=gen).to(
+        torch.bfloat16).reshape(b, s, h, 256)
+    pe = torch.randn(b, s, 1, 64, device=card, generator=gen).to(
+        torch.bfloat16).expand(b, s, h, 64)
+    return q, torch.cat([kv[..., :128], pe], -1), kv[..., 128:]
+
+
 def _fa_check(q, k, v):
     o = ops.flash_attn(q, k, v)
     o32 = ref.flash_attention_ref(q.float(), k.float(), v.float())
     torch.cuda.synchronize()
-    assert o.dtype == torch.bfloat16 and o.shape == q.shape
+    assert o.dtype == torch.bfloat16 and o.shape == q.shape[:3] + v.shape[3:]
     assert o.is_contiguous()
     vmax = v.float().abs().max().item()
     err = (o.float() - o32).abs() - 2.0 ** -8 * o32.abs()
@@ -347,6 +370,86 @@ def test_flash_attn_at_ragged_lengths(card, s, g, hd):
 def test_flash_attn_repeats_its_bits(card):
     q, k, v = _fa_inputs(2, 1000, 32, 2, 128, card)
     assert torch.equal(ops.flash_attn(q, k, v), ops.flash_attn(q, k, v))
+
+
+# SHA-256 (first 32 hex digits) of the kernel's output bits on fixed
+# inputs (``_fa_inputs(*shape, fused=False)``), from the build before the
+# (192, 128) instantiation came: Nemotron-H's attention shape at (128,
+# 128), and a ragged G = 4 shape at (64, 64)
+FA_DIGESTS = [((4, 4096, 32, 2, 128), "2dbf1024f4479fead7934b6c89774740"),
+              ((2, 1000, 16, 4, 64), "ba54acb32e4c052efd35996fdd53f318")]
+
+
+@pytest.mark.parametrize("shape,digest", FA_DIGESTS)
+def test_flash_attn_keeps_its_bits(card, shape, digest):
+    with torch.inference_mode():
+        o = ops.flash_attn(*_fa_inputs(*shape, card, fused=False))
+    got = hashlib.sha256(o.view(torch.int16).cpu().numpy().tobytes())
+    assert got.hexdigest()[:32] == digest
+
+
+def test_flash_attn_at_kimis_latent_attention_shape(card):
+    """2 x 8,192 tokens, 32 heads of q and k 192 and v 128, v a view of
+    the KV expansion; the scale is 192^-1/2."""
+    ops.reset_launch_counts()
+    _fa_check(*_mla_inputs(2, 8192, 32, card))
+    assert ops.launch_counts()["flash_attn"] == 1
+
+
+@pytest.mark.parametrize("s", [1, 63, 127, 1000, 4097])
+def test_flash_attn_latent_heads_at_ragged_lengths(card, s):
+    """S not a multiple of the 64-row or 64-key tiles, (192, 128) heads."""
+    _fa_check(*_mla_inputs(2, s, 16, card, seed=s))
+
+
+def test_flash_attn_latent_heads_repeat_their_bits(card):
+    q, k, v = _mla_inputs(2, 1000, 32, card)
+    ops.reset_launch_counts()
+    assert torch.equal(ops.flash_attn(q, k, v), ops.flash_attn(q, k, v))
+    assert ops.launch_counts()["flash_attn"] == 2
+
+
+def test_mla_mixer_runs_the_kernel(card, tmp_path, monkeypatch):
+    """Kimi Linear's latent-attention layer at the reduced config's widths
+    with the published heads (128 + 64 for q and k, 128 for v) under
+    inference mode: one launch and one ``mla.mix`` span with
+    ``path="kernel"`` a call; its output that of the plain version within
+    1 % through the output projection."""
+    cfg = configs.reduced_config(configs.get_config(
+        "kimi-linear-48b-a3b")).scaled(dtype="bfloat16", qk_nope_head_dim=128,
+                                       qk_rope_head_dim=64, v_head_dim=128)
+    p = layers.init_mla(cfg.d_model, cfg.n_heads, cfg.kv_lora_rank,
+                        cfg.qk_nope_head_dim, cfg.qk_rope_head_dim,
+                        cfg.v_head_dim, torch.bfloat16, card)
+    gen = torch.Generator(device="cpu").manual_seed(3)
+    with torch.no_grad():
+        for name in sorted(p):
+            if hasattr(p[name], "init_scale"):  # kv_norm stays ones
+                p[name].copy_(torch.randn(p[name].shape, generator=gen)
+                              * p[name].init_scale)
+    h = torch.randn(2, 300, cfg.d_model, generator=gen).to(
+        card, torch.bfloat16)
+    path = tmp_path / "spans.jsonl"
+    trace.configure(str(path))
+    ops.reset_launch_counts()
+    try:
+        with torch.inference_mode():
+            got = [tf.mla_mixer(p, cfg, h) for _ in range(2)]
+    finally:
+        trace.configure(None)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attn"] == 2
+    recs = [json.loads(line) for line in path.read_text().splitlines()]
+    assert [r["attrs"]["path"] for r in recs
+            if r["name"] == "mla.mix"] == ["kernel", "kernel"]
+    assert torch.equal(got[0], got[1])
+    # the plain version in the kernel's place
+    monkeypatch.setattr(tf, "flash_attention", ref.flash_attention_ref)
+    with torch.inference_mode():
+        want = tf.mla_mixer(p, cfg, h)
+    rel = (torch.linalg.norm(got[0].float() - want.float())
+           / torch.linalg.norm(want.float())).item()
+    assert rel < 1e-2, rel
 
 
 def _nemotron_attention(card, head_dim):
